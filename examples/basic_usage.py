@@ -13,9 +13,11 @@ import jax
 import jax.numpy as jnp
 
 import tf_flash_attention_tpu as fa
+from tf_flash_attention_tpu.utils.profiling import setup_compile_cache
 
 
 def main():
+    setup_compile_cache()
     key = jax.random.PRNGKey(0)
     kq, kk, kv = jax.random.split(key, 3)
 

@@ -26,9 +26,11 @@ import jax.numpy as jnp
 from tf_flash_attention_tpu.mask_rules import LocalRule
 from tf_flash_attention_tpu.models.transformer import ModelConfig, init_params
 from tf_flash_attention_tpu.serving.engine import DecodeEngine, EngineConfig
+from tf_flash_attention_tpu.utils.profiling import setup_compile_cache
 
 
 def main():
+    setup_compile_cache()
     cfg = ModelConfig(vocab=256, d_model=256, n_layers=2, n_heads=8,
                       n_kv_heads=4, d_head=64, d_ff=512, max_seq=4096,
                       dtype=jnp.bfloat16,

@@ -17,9 +17,11 @@ import optax
 from tf_flash_attention_tpu.models.transformer import (
     ModelConfig, init_params, make_sharded_train_step, param_shardings)
 from tf_flash_attention_tpu.parallel.mesh import make_mesh
+from tf_flash_attention_tpu.utils.profiling import setup_compile_cache
 
 
 def main():
+    setup_compile_cache()
     n = jax.device_count()
     tp = 4 if n % 4 == 0 else 1
     dp = n // tp

@@ -186,22 +186,23 @@ def test_custom_scale():
 
 
 def test_solver_tracks_measured_frontier():
-    """choose_block_config must return the measured-best tile classes for
-    the benchmark shape (docs/TUNING.md) and stay within VMEM/seq caps for
-    small shapes (the analytic-ladder fallback)."""
+    """choose_block_config returns the table's Triton tiles for the head
+    dim and operand class, every block a power of two >= 16, shrunk to
+    short sequences."""
     from tf_flash_attention_tpu.block_sizes import choose_block_config
 
     cfg = choose_block_config(4096, 4096, 128, 128, jnp.bfloat16)
-    assert (cfg.block_q, cfg.block_kv) == (1024, 1024)
-    assert (cfg.block_q_dq, cfg.block_kv_dq) == (1024, 512)
-    # round-5 banded-fused frontier: (1024, 512) for ungrouped,
-    # (512, 512) for GQA groups > 2 (docs/TUNING.md round 5)
-    assert (cfg.block_q_dkv, cfg.block_kv_dkv) == (1024, 512)
-    gqa = choose_block_config(4096, 4096, 128, 128, jnp.bfloat16, kv_group=8)
-    assert (gqa.block_q_dkv, gqa.block_kv_dkv) == (512, 512)
-    # sub-tiling knobs measured dead on v5e (docs/TUNING.md): solver leaves
-    # them off
-    assert cfg.block_kv_compute is None and cfg.block_q_compute is None
-    # fallback path: tiny sequences clamp below the measured frontier
-    small = choose_block_config(128, 128, 128, 128, jnp.float32)
-    assert small.block_q <= 1024 and small.block_kv <= 1024
+    assert (cfg.block_q, cfg.block_kv) == (64, 128)
+    assert (cfg.block_q_dkv, cfg.block_kv_dkv) == (64, 64)
+    assert (cfg.num_warps, cfg.num_stages) == (4, 3)
+    f32 = choose_block_config(4096, 4096, 128, 128, jnp.float32)
+    assert f32.block_q * f32.block_kv < cfg.block_q * cfg.block_kv
+    for c in (cfg, f32):
+        for b in (c.block_q, c.block_kv, c.block_q_dq, c.block_kv_dq,
+                  c.block_q_dkv, c.block_kv_dkv):
+            assert b >= 16 and b & (b - 1) == 0
+    # short sequences shrink the tiles to the next power of two >= 16
+    small = choose_block_config(20, 9, 24, 12, jnp.float32)
+    assert (small.block_q, small.block_kv) == (32, 16)
+    with pytest.raises(ValueError):
+        BlockConfig(96, 64, 64, 64, 64, 64)

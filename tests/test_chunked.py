@@ -2,8 +2,8 @@
 
 The CUDA reference ships real fp64 kernels with a 1e-9 internal-test
 threshold (``kernel/internal_test.cu:15-28``, instantiations
-``flash_attention.cu:2450-2487``).  TPU fp64 is software, so this repo's
-fp64 path is ``ops/chunked.py``: the same online-softmax recurrence in
+``flash_attention.cu:2450-2487``).  The Triton kernels take no fp64, so this
+repo's fp64 path is ``ops/chunked.py``: the same online-softmax recurrence in
 plain XLA with O(block) memory.  These tests pin (a) true-fp64 accuracy
 against a NumPy float64 oracle, (b) gradient parity, (c) that the public
 API routes fp64 there by default, and (d) a 16k-sequence run that would be

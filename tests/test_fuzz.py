@@ -15,8 +15,8 @@ causality) are themselves randomized per run, and each run checks
 
 Shape bounds are scaled to the CPU-interpret budget (the reference runs
 256..4096-length sequences on a resident GPU; interpret mode is a Python
-interpreter).  ``FA_FUZZ_RUNS`` overrides the per-case run count — the
-on-chip record in docs/PARITY.md is produced with the default 20.
+interpreter).  ``FA_FUZZ_RUNS`` overrides the per-case run count.  On a GPU the
+bounds switch to the reference's own scale.
 """
 
 import os
@@ -49,32 +49,19 @@ CASE_MATRIX = [("full", "none_front")] + [
 
 # Per-dtype sequence bounds (min incl., max incl.), mirroring the shape of
 # the reference's per-dtype table (fp64 smallest) at interpret-mode scale.
-# Under FA_TEST_TPU=1 the bounds switch to the reference's own hardware
-# scale (1d seq 256..4096/2048/1024 per dtype, test_1d.py:57-66; 2d per-dim
-# 16..64/48/32, test_2d.py:85-94) — the chip-run record lives in
-# docs/PARITY.md.
-if os.environ.get("FA_TEST_TPU"):
-    SEQ_BOUNDS_1D = {
-        jnp.float32: (256, 2048),
-        jnp.bfloat16: (256, 4096),
-        jnp.float64: (256, 1024),
-    }
-    SEQ_BOUNDS_2D = {
-        jnp.float32: (16, 48),
-        jnp.bfloat16: (16, 64),
-        jnp.float64: (16, 32),
-    }
-else:
-    SEQ_BOUNDS_1D = {
-        jnp.float32: (33, 320),
-        jnp.bfloat16: (34, 384),
-        jnp.float64: (33, 192),
-    }
-    SEQ_BOUNDS_2D = {
-        jnp.float32: (3, 14),
-        jnp.bfloat16: (4, 14),
-        jnp.float64: (3, 10),
-    }
+# On a GPU the bounds switch to the reference's own hardware scale (1d seq
+# 256..4096/2048/1024 per dtype, test_1d.py:57-66; 2d per-dim 16..64/48/32,
+# test_2d.py:85-94).
+SEQ_BOUNDS_HW = (
+    {jnp.float32: (256, 2048), jnp.bfloat16: (256, 4096),
+     jnp.float64: (256, 1024)},
+    {jnp.float32: (16, 48), jnp.bfloat16: (16, 64), jnp.float64: (16, 32)},
+)
+SEQ_BOUNDS_CPU = (
+    {jnp.float32: (33, 320), jnp.bfloat16: (34, 384),
+     jnp.float64: (33, 192)},
+    {jnp.float32: (3, 14), jnp.bfloat16: (4, 14), jnp.float64: (3, 10)},
+)
 
 
 def make_rule(case, rng, ref_max):
@@ -108,10 +95,11 @@ def maybe_x64(request):
 
 
 def run_fuzz(case, sync_mode, seq_dims, dtype):
-    bounds = (SEQ_BOUNDS_1D if seq_dims == 1 else SEQ_BOUNDS_2D)[dtype]
+    table = SEQ_BOUNDS_HW if jax.default_backend() == "gpu" else SEQ_BOUNDS_CPU
+    bounds = table[seq_dims - 1][dtype]
     even = jnp.dtype(dtype).itemsize == 2
     base = 1e-3 if even else 1e-6
-    # Error-report mode (chip-scale record for docs/PARITY.md — the
+    # Error-report mode (the
     # analog of the reference's error-rate report,
     # internal_test.cu:289-317): collect the worst |err|/tolerance ratio
     # per quantity across all runs and print one summary line.
@@ -185,7 +173,7 @@ def run_fuzz(case, sync_mode, seq_dims, dtype):
         # which is below the fp32 backward's physical error floor — the
         # recompute dS = P*(dP - D) amplifies P's ~3e-6 relative error (f32
         # (l, m) -> LSE fold roundings) by |dP - D| ~ O(d_v * value^2),
-        # independent of n_k.  Measured on chip at the adversarial shape
+        # independent of n_k.  Measured at the adversarial shape
         # (q=268, k=33): kernel gradients 1.8e-4 vs an fp64 oracle while
         # the dense f32 XLA oracle shows 5e-6 (forward O: 2e-6) — inside
         # the reference's own 2.56e-4 minimum envelope, and the reference's

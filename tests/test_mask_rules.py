@@ -118,42 +118,27 @@ def test_causal_skips_upper_triangle_tiles():
             assert sched.live[qi, kj] == (kj <= qi)
 
 
-def test_banded_segments_routing():
-    """The banded resident-KV fast path must engage exactly for schedules
-    whose live sets are contiguous bands.  1d rules — causal, local,
-    even strided-local (dilation spreads *elements*, but the position
-    span |q-k| < w<<s stays one contiguous interval) — are all banded;
-    2d local windows flatten to multiple stripes (one per window row)
-    and must fall back to the table kernel."""
+def test_transposed_schedule_tables():
+    """The kv-outer backward kernel walks ``transpose()``: per kv block,
+    the live q blocks in order, with the same interior/partial classes as
+    the forward table read column-wise."""
+    import numpy as np
+
     from tf_flash_attention_tpu.schedule import build_schedule
     from tf_flash_attention_tpu.sync_modes import make_sync_pack
 
-    pack = make_sync_pack("none_front", (1024,), (1024,))
-    assert build_schedule(pack, CausalRule(), 128, 128).banded_segments() is not None
-    assert build_schedule(pack, FullRule(), 128, 128).banded_segments() is not None
-    assert build_schedule(
-        pack, LocalRule(window_size=3, log2_stride_size=0, is_causal=True),
-        128, 128).banded_segments() is not None
-    # 1d strided-local is still one contiguous position band -> banded
-    strided = build_schedule(
-        pack, LocalRule(window_size=4, log2_stride_size=3, is_causal=False),
-        128, 128)
-    assert strided.banded_segments() is not None
-    # 2d local flattens to one stripe per window row; once the row
-    # stride (dim1) is wide enough that inter-stripe gaps exceed a tile,
-    # the holes force the table-kernel fallback
-    pack2d = make_sync_pack("none_front", (8, 1024), (8, 1024))
-    twod = build_schedule(
-        pack2d, LocalRule(window_size=2, log2_stride_size=0, is_causal=False),
-        128, 128)
-    assert twod.banded_segments() is None
-    # scale modes keep contiguity
-    pack2 = make_sync_pack("scale_front", (512,), (1024,))
-    assert build_schedule(pack2, CausalRule(), 128, 128).banded_segments() is not None
-    # segments are consistent with the table: per-row [start, end) spans
-    sched = build_schedule(pack, CausalRule(), 128, 128)
-    seg = sched.banded_segments()
-    for r in range(sched.num_q_blocks):
-        import numpy as np
-        live = np.flatnonzero(sched.live[r])
-        assert seg[r, 0] == live[0] and seg[r, 3] == live[-1] + 1
+    for mode, rule in [("none_front", CausalRule()),
+                       ("scale_front", LocalRule(window_size=3,
+                                                 log2_stride_size=1,
+                                                 is_causal=True))]:
+        pack = make_sync_pack(mode, (700,), (1000,))
+        fwd = build_schedule(pack, rule, 128, 64)
+        t = fwd.transpose()
+        assert t.num_q_blocks == fwd.num_kv_blocks
+        for kj in range(t.num_q_blocks):
+            live_q = np.flatnonzero(fwd.live[:, kj])
+            n = int(t.kv_counts[kj])
+            assert n == live_q.size
+            np.testing.assert_array_equal(t.kv_table[kj, :n], live_q)
+            np.testing.assert_array_equal(
+                t.needs_mask[kj, :n], fwd.partial[live_q, kj].astype(np.int32))

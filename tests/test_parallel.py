@@ -1,7 +1,7 @@
 """Sharding tests on a virtual 8-device CPU mesh.
 
 No reference counterpart (the reference is single-GPU); these validate the
-first-class TPU parallelism layer: head/data-sharded attention and
+parallelism layer: head/data-sharded attention and
 context-parallel ring attention agree with the single-device kernel.
 """
 

@@ -84,7 +84,7 @@ def greedy_dense(params, prompt, n_new):
 
 # Deliberately NOT slow-marked: the one whole-engine greedy-parity check
 # that always runs in the default (fast) tier, so serving regressions
-# cannot hide behind the `-m 'not slow'` default (ADVICE.md round 2).
+# cannot hide behind the `-m 'not slow'` default.
 @pytest.mark.parametrize("quantized", [False])
 def test_engine_matches_dense_greedy(quantized):
     params = init_params(MCFG, jax.random.PRNGKey(0))

@@ -6,16 +6,18 @@
 (``Q: batch_shape + (d, *q_seq)``, ``K: batch_shape + (d, *k_seq)``,
 ``V: batch_shape + (v_d, *k_seq)``), a ``sync_mode`` string, optional
 ``returning_l_m``, and outputs ``O`` (+ ``l``, ``m``).  Autodiff is wired
-through ``jax.custom_vjp`` (the TPU-native replacement for the reference's
+through ``jax.custom_vjp`` (the replacement for the reference's
 TF gradient registrations, ``flash_attention.py:392-471``) saving
 ``(Q, K, V, O, l, m)`` as residuals — the exact saved-tensor contract of
 the reference backward ops.
 
-Two implementations sit behind the same surface:
+Three implementations sit behind the same surface:
 
-* ``"pallas"`` — the fused TPU kernels (default on TPU; on CPU they run in
-  interpreter mode, the role the reference's no-TF ``internal_test.cu``
-  CPU oracle plays);
+* ``"pallas"`` — the fused kernels (compiled through Triton on the GPU; on
+  the CPU they run in interpreter mode, the role the reference's no-TF
+  ``internal_test.cu`` CPU oracle plays);
+* ``"xla_flash"`` — the same flash recurrence as plain XLA
+  (``ops/chunked.py``), the float64 path;
 * ``"xla"`` — the dense oracle path (useful for debugging and for tiny
   shapes where kernel launch overhead dominates).
 """
@@ -28,9 +30,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .block_sizes import BlockConfig, choose_block_config, pad_to, LANE
+from .block_sizes import BlockConfig, choose_block_config
 from .mask_rules import CausalRule, FullRule, LocalRule, MaskRule
 from .ops.attend import AttendParams, attend
+from .ops.backend import default_interpret
 from .ops.reference import build_mask, reference_attention_flat
 from .sync_modes import make_sync_pack
 
@@ -42,17 +45,13 @@ __all__ = [
 
 
 def _default_implementation(dtype) -> str:
-    # float64 has no native TPU MXU path (the CUDA reference compiles real
-    # fp64 kernels, flash_attention.cu:2450-2487); route it through the
-    # chunked flash-structured XLA path, which keeps flash's O(block)
-    # memory at the reference's fp64 precision class.
+    # The Triton route has no float64 tensor-core path (the CUDA reference
+    # compiles real fp64 kernels, flash_attention.cu:2450-2487); route it
+    # through the chunked flash-structured XLA path, which keeps flash's
+    # O(block) memory at the reference's fp64 precision class.
     if jnp.dtype(dtype) == jnp.float64:
         return "xla_flash"
     return "pallas"
-
-
-def _default_interpret() -> bool:
-    return jax.default_backend() not in ("tpu",)
 
 
 def _public_lm(in_dtype, l32, m32):
@@ -118,12 +117,9 @@ def flash_attention(
     if implementation is None:
         implementation = _default_implementation(Q.dtype)
     if interpret is None:
-        interpret = _default_interpret()
+        interpret = default_interpret()
     if block_config is None:
-        block_config = choose_block_config(
-            q_len, k_len, pad_to(d, LANE), pad_to(v_d, LANE), Q.dtype,
-            pack=pack, rule=rule,
-        )
+        block_config = choose_block_config(q_len, k_len, d, v_d, Q.dtype)
 
     B = int(np.prod(batch_shape)) if batch_shape else 1
     # channel-first -> (B, seq, channel)

@@ -1,17 +1,11 @@
-"""Kernel block-size selection from the VMEM budget.
+"""Tile sizes and Triton launch parameters for the attention kernels.
 
-TPU analog of the reference's shared-memory-budget solver
-(``DecideConfigurationForForward`` / ``DetermineConfigurationForBackward``,
-``flash_attention.cu:1977-2067``; fixed ``Br`` choice at
-``flash_attention.h:200``).  On TPU the constraints are:
-
-* the lane dimension is 128, so block sizes on the kv axis (which forms the
-  lane dimension of the scores tile) are multiples of 128;
-* sublane granularity is 8 (fp32) / 16 (bf16), so q-axis blocks are kept at
-  multiples of 128 as well for MXU efficiency;
-* all live tiles (Q, double-buffered K/V, scores, fp32 accumulators) must
-  fit in ~16 MB of VMEM per core; we solve against a conservative budget to
-  leave the Mosaic pipeline room for double buffering.
+The reference sized its tiles from the card's queried shared-memory size
+(``DecideConfigurationForForward``, ``flash_attention.cu:1977-2067``).
+Here Triton places the tiles in shared memory and registers itself, so
+the choice is a small table keyed by the kernel's operand class (16-bit
+or float32) and the padded head dim.  Tiles are powers of two of at
+least 16 rows, the smallest operand Triton's ``dot`` takes.
 """
 
 from __future__ import annotations
@@ -20,32 +14,39 @@ import dataclasses
 
 import jax.numpy as jnp
 
-__all__ = ["BlockConfig", "choose_block_config", "pad_to", "LANE", "MIN_BLOCK", "VMEM_LIMIT"]
+__all__ = ["BlockConfig", "choose_block_config", "pad_to", "pad_dim",
+           "MIN_BLOCK"]
 
-LANE = 128
-MIN_BLOCK = 128
-# Conservative solver budget (bytes); real VMEM is ~16 MiB on v5e but the
-# pipeline needs headroom for double-buffered input windows.
-DEFAULT_VMEM_BUDGET = 10 * 1024 * 1024
-# Mosaic scoped-VMEM ceiling requested for the attention kernels.  The
-# default Mosaic limit is 16 MiB; v5e physically has more, and the large
-# (2048x1024) score tiles need the headroom.
-VMEM_LIMIT = 64 * 1024 * 1024
+MIN_BLOCK = 16
 
 
 def pad_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def pad_dim(d: int) -> int:
+    """Feature width a kernel tile uses: the next power of two >= 16."""
+    return max(MIN_BLOCK, next_pow2(d))
+
+
+def fit_block(block: int, length: int) -> int:
+    """``block`` shrunk to the sequence, keeping a power of two >= 16."""
+    return max(MIN_BLOCK, min(block, next_pow2(length)))
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
-    """Static tile sizes for the forward and backward kernels.
+    """Static tile sizes and launch parameters of the kernels.
 
-    ``block_kv_compute`` sub-tiles the kv block inside one grid step with an
-    unrolled loop, so the MXU matmul of sub-tile j+1 can overlap the VPU
-    softmax chain of sub-tile j (the analog of the two-level
-    ``block_k_major``/``block_k`` tiling in JAX's production flash kernels).
-    ``None`` means no sub-tiling.
+    ``block_q``/``block_kv`` tile the forward kernel; ``block_q_dkv``/
+    ``block_kv_dkv`` tile the kv-outer backward kernel (dK, dV and dQ);
+    ``block_q_dq``/``block_kv_dq`` tile the q-outer dQ pass of the split
+    backward.  ``num_warps``/``num_stages`` launch the forward kernel,
+    ``bwd_num_warps``/``bwd_num_stages`` the backward kernels.
     """
 
     block_q: int
@@ -54,233 +55,50 @@ class BlockConfig:
     block_kv_dq: int
     block_q_dkv: int
     block_kv_dkv: int
-    block_kv_compute: int | None = None
-    # q-axis sub-tiling: splits one grid step into independent per-sub-block
-    # softmax chains, giving the scheduler freedom to overlap one sub-block's
-    # matmul with another's VPU chain (no data dependence between them)
-    block_q_compute: int | None = None
+    num_warps: int = 4
+    num_stages: int = 2
+    bwd_num_warps: int = 4
+    bwd_num_stages: int = 2
 
     def __post_init__(self):
         for name in ("block_q", "block_kv", "block_q_dq", "block_kv_dq",
                      "block_q_dkv", "block_kv_dkv"):
             v = getattr(self, name)
-            if v % LANE:
-                raise ValueError(f"{name}={v} must be a multiple of {LANE}")
-        if self.block_kv_compute is not None:
-            if self.block_kv_compute % LANE or self.block_kv % self.block_kv_compute:
+            if v < MIN_BLOCK or v & (v - 1):
                 raise ValueError(
-                    f"block_kv_compute={self.block_kv_compute} must be a multiple of "
-                    f"{LANE} and divide block_kv={self.block_kv}")
-        if self.block_q_compute is not None:
-            if self.block_q_compute % LANE or self.block_q % self.block_q_compute:
-                raise ValueError(
-                    f"block_q_compute={self.block_q_compute} must be a multiple of "
-                    f"{LANE} and divide block_q={self.block_q}")
+                    f"{name}={v} must be a power of two >= {MIN_BLOCK}")
 
 
-def _fwd_vmem_bytes(bq: int, bk: int, dp: int, vdp: int, itemsize: int) -> int:
-    q = bq * dp * itemsize
-    kv = 2 * bk * (dp + vdp) * itemsize  # double-buffered input windows
-    scores = bq * bk * 4
-    acc = bq * vdp * 4
-    stats = 2 * bq * LANE * 4
-    out = bq * vdp * itemsize
-    return q + kv + scores + acc + stats + out
-
-
-def _bwd_vmem_bytes(bq: int, bk: int, dp: int, vdp: int, itemsize: int) -> int:
-    # dKV kernel is the heavier one: k, v resident; q, o, do stream per step;
-    # scores + p + ds in fp32; dk, dv fp32 accumulators.
-    kv = bk * (dp + vdp) * itemsize
-    stream = 2 * bq * (dp + 2 * vdp) * itemsize
-    mats = 3 * bq * bk * 4
-    accs = bk * (dp + vdp) * 4
-    stats = 3 * bq * LANE * 4
-    return kv + stream + mats + accs + stats
-
-
-# Measured-preference frontiers from the on-chip autotune sweeps
-# (tools/exp_autotune.py forward, tools/exp_bwd_tune.py backward; results
-# recorded in docs/TUNING.md).  The solver walks each list in order and
-# takes the first entry that fits the VMEM budget and sequence caps,
-# falling back to the analytic area-maximising ladder for shapes the
-# sweeps did not cover.  This closes the loop the reference's smem solver
-# closes analytically (``flash_attention.cu:1977-2067``): on TPU the
-# frontier is measured, not derived, because the Mosaic pipeline's
-# overlap behaviour is not captured by a byte-budget model.
-_FWD_PREF = [(1024, 1024), (1024, 512), (512, 512)]
-_DQ_PREF = [(1024, 512), (1024, 1024), (512, 512)]
-# Round-5 banded fused-backward frontier (tools/ sweeps, docs/TUNING.md
-# round 5): the fused kernel has no online-merge chain, so narrow kv
-# tiles pipeline freely — (1024, 512) runs at the chip's measured dense
-# peak in scheduled terms (192 useful TFLOP/s degraded-window vs 141 for
-# the round-4 (512, 512) pick).  GQA groups g > 2 invert the ordering
-# (the g-member loop over wide q rows breaks the pipeline: g=8 measures
-# 70 useful at (1024, 512) vs 144 at (512, 512)), hence the split lists.
-_DKV_PREF = [(1024, 512), (512, 512), (512, 1024)]
-_DKV_PREF_GROUPED = [(512, 512), (512, 1024), (1024, 1024)]
-# Narrow-band (window-eligible) rules: the fused banded backward walks
-# only the live q segments per kv block, so small q blocks cut the
-# block-granularity band waste — measured on the 2d w=8 bench case
-# (same window, mxu_ref 186): (256,512) 66.9 useful T128 > (512,512)
-# 63.2 > (1024,512) 50.0 (the causal default).  docs/TUNING.md round 5.
-_DKV_PREF_NARROW = [(256, 512), (512, 512), (256, 256)]
-
-
-#: Measured per-scheduled-FLOP wall-time factors relative to (1024, 1024),
-#: from the round-5 on-chip narrow-band sweep WITH delta masks
-#: (tools/exp_2d_sweep.py + the delta-mask A/B, docs/TUNING.md round 5).
-#: The factors are PAIR costs, not separable bq x bk products: the
-#: penalty is dominated by the per-kv-step online-merge chain (an
-#: (block_q, v_d) accumulator rescale per step regardless of kv width),
-#: so narrow-kv configs pay disproportionately.
-_PAIR_FACTOR = {
-    (1024, 1024): 1.00, (512, 1024): 1.05, (1024, 512): 1.40,
-    (512, 512): 1.65, (512, 256): 3.10, (256, 256): 2.90,
-    (1024, 128): 3.60, (512, 128): 4.50,
+# (16-bit operands?, padded head dim) -> (fwd block_q, block_kv, warps,
+# stages, bwd block_q, block_kv, warps, stages).  The d=64 and d=128 rows
+# are the fastest of a sweep on an H100 at causal S=4096 (S=2048 for
+# float32; ``PERF.md``); narrower heads reuse the d=64 row and d=256
+# halves the tiles.  Float32 runs in IEEE mode
+# (``kernel_common.dot_precision``), whose larger tiles spill registers:
+# at d=128 a (64, 64) forward measured 8x slower than (32, 32).
+_TABLE = {
+    (True, 16): (64, 64, 4, 3, 64, 64, 4, 2),
+    (True, 32): (64, 64, 4, 3, 64, 64, 4, 2),
+    (True, 64): (64, 64, 4, 3, 64, 64, 4, 2),
+    (True, 128): (64, 128, 4, 3, 64, 64, 4, 3),
+    (True, 256): (64, 32, 8, 2, 32, 32, 8, 1),
+    (False, 16): (32, 32, 4, 2, 32, 32, 4, 2),
+    (False, 32): (32, 32, 4, 2, 32, 32, 4, 2),
+    (False, 64): (32, 32, 4, 2, 32, 32, 4, 2),
+    (False, 128): (32, 32, 4, 2, 16, 16, 4, 1),
+    (False, 256): (16, 16, 4, 1, 16, 16, 4, 1),
 }
 
 
-def _waste_aware_blocks(pack, rule, q_len, k_len, q_cap, k_cap,
-                        cost_fn, d_pad, v_d_pad, itemsize, vmem_budget):
-    """Schedule-aware tile choice for narrow-band rules.
-
-    Local rules with small windows schedule a large multiple of the
-    useful work at 1024-class tiles (measured 3.0x for the 2d w=8 bench
-    case).  Candidates are ranked by ``scheduled_flops x measured pair
-    factor`` and the winner must beat the default class by >= 15%
-    predicted — conservative, because the factors are state-dependent
-    (docs/TUNING.md).
-
-    Round-4 note (kept for the record): with the old arithmetic tile
-    masks and the round-4 noisy estimator this pass measured negative
-    and was opt-out.  Round 5 re-measured with delta masks and the
-    jitter-proof timer: (512, 1024) beats (1024, 1024) by ~20% on the 2d
-    w=8 bench case (0.245 vs 0.298 ms), so the pass is ON by default for
-    masking rules (FA_WASTE_AWARE=0 disables).
-    """
-    from .schedule import build_schedule
-
-    def sched_flops(bq, bk):
-        s = build_schedule(pack, rule, bq, bk)
-        return bq * bk * int(s.live.sum())
-
-    best, best_cost, base_cost = None, None, None
-    for bq, bk in sorted(_PAIR_FACTOR, key=lambda c: -c[0] * c[1]):
-        if bq > q_cap or bk > k_cap:
-            continue
-        if cost_fn(bq, bk, d_pad, v_d_pad, itemsize) > vmem_budget:
-            continue
-        cost = sched_flops(bq, bk) * _PAIR_FACTOR[bq, bk]
-        if base_cost is None:
-            base_cost = cost  # first feasible candidate = default class
-        if best_cost is None or cost < best_cost:
-            best, best_cost = (bq, bk), cost
-    if best is None or base_cost is None or best_cost > 0.85 * base_cost:
-        return None
-    return best
-
-
-def _window_blocks(pack, rule, q_len, k_len, q_cap, bk):
-    """Grid block_q for the single-window kernel, or ``None``.
-
-    ``flash_forward`` routes narrow-band rules to the single-window
-    kernel whenever ``schedule.window_band_table`` is eligible at some
-    sub-block size; the scheduled band area is set by the SUB-block
-    choice (made at trace time in the routing), while the GRID block
-    only amortises per-step overhead and interleaves independent
-    sub-chains — so when any sub size is eligible the solver simply
-    keeps the grid block large (the routing halves it if the unrolled
-    scores tiles would exceed VMEM).
-    """
-    from .schedule import window_band_table
-
-    k_pad = pad_to(k_len, bk)
-    for sq in (512, 256, 128):
-        if sq > q_cap:
-            continue
-        # Interleaved-pair A/B on the 2d w=8 case (same window): grid
-        # 1024 0.1242 ms > 2048 0.1326 > 512 0.1446 — the earlier
-        # "512 ~= 1024" read was cross-config window drift.
-        grid_bq = min(1024, q_cap)
-        if window_band_table(pack, rule, sq, q_len, k_len,
-                             pad_to(q_len, grid_bq), k_pad) is not None:
-            return grid_bq
-    return None
-
-
-def choose_block_config(
-    q_len: int,
-    k_len: int,
-    d_pad: int,
-    v_d_pad: int,
-    dtype,
-    vmem_budget: int = DEFAULT_VMEM_BUDGET,
-    pack=None,
-    rule=None,
-    kv_group: int = 1,
-) -> BlockConfig:
-    """Pick tile sizes: measured preference first, VMEM ladder fallback.
-
-    Mirrors the role of the reference's smem solver: ``Br`` fixed by a
-    hardware transaction size, ``Bc`` solved from the remaining budget
-    (``flash_attention.cu:1977-2012``).  Here the measured-best frontier
-    (docs/TUNING.md) is consulted first; the analytic ladder solve covers
-    anything the budget or sequence caps exclude.  When ``pack``/``rule``
-    are provided and the rule masks, a schedule-aware pass may choose
-    smaller tiles for narrow-band rules (see ``_waste_aware_blocks``).
-    """
-    itemsize = jnp.dtype(dtype).itemsize
-    q_cap = max(MIN_BLOCK, pad_to(min(q_len, 2048), LANE))
-    k_cap = max(MIN_BLOCK, pad_to(min(k_len, 2048), LANE))
-
-    def solve(cost_fn, pref):
-        for bq, bk in pref:
-            if (bq <= q_cap and bk <= k_cap
-                    and cost_fn(bq, bk, d_pad, v_d_pad, itemsize) <= vmem_budget):
-                return bq, bk
-        best = (MIN_BLOCK, MIN_BLOCK)
-        candidates = [1024, 512, 256, 128]
-        for bq in candidates:
-            if bq > q_cap:
-                continue
-            for bk in candidates:
-                if bk > k_cap:
-                    continue
-                if cost_fn(bq, bk, d_pad, v_d_pad, itemsize) <= vmem_budget:
-                    if bq * bk > best[0] * best[1] or (
-                        bq * bk == best[0] * best[1] and bk > best[1]
-                    ):
-                        best = (bq, bk)
-        return best
-
-    fq, fk = solve(_fwd_vmem_bytes, _FWD_PREF)
-    dq_q, dq_k = solve(_bwd_vmem_bytes, _DQ_PREF)
-    dkv_q, dkv_k = solve(_bwd_vmem_bytes,
-                         _DKV_PREF_GROUPED if kv_group > 2 else _DKV_PREF)
-    import os
-    if (pack is not None and rule is not None and not rule.is_full
-            and os.environ.get("FA_WASTE_AWARE", "1") != "0"):
-        waste = _waste_aware_blocks(pack, rule, q_len, k_len, q_cap, k_cap,
-                                    _fwd_vmem_bytes, d_pad, v_d_pad,
-                                    itemsize, vmem_budget)
-        if waste is not None:
-            # forward only: the backward kernels have not been re-swept
-            # with narrow-band configs (their 512-class defaults already
-            # bound the waste at 1.6x for the bench 2d case)
-            fq, fk = waste
-    if (pack is not None and rule is not None
-            and os.environ.get("FA_WINDOW", "1") != "0"):
-        # Single-window kernel (round 5): when the rule's live set is a
-        # narrow contiguous band, flash_forward routes to the
-        # dynamic-start window kernel, whose best block_q is set by band
-        # area, not the streaming frontier (see _window_blocks).
-        wq = _window_blocks(pack, rule, q_len, k_len, q_cap, fk)
-        if wq is not None:
-            fq = wq
-            dkv_q, dkv_k = solve(_bwd_vmem_bytes, _DKV_PREF_NARROW)
+def choose_block_config(q_len: int, k_len: int, d: int, v_d: int,
+                        dtype) -> BlockConfig:
+    """Tiles for one call, from the table, shrunk to short sequences."""
+    half = jnp.dtype(dtype).itemsize <= 2
+    width = min(256, pad_dim(max(d, v_d)))
+    fq, fk, fw, fs, bq, bk, bw, bs = _TABLE[half, width]
     return BlockConfig(
-        block_q=fq, block_kv=fk,
-        block_q_dq=dq_q, block_kv_dq=dq_k,
-        block_q_dkv=dkv_q, block_kv_dkv=dkv_k,
+        block_q=fit_block(fq, q_len), block_kv=fit_block(fk, k_len),
+        block_q_dq=fit_block(bq, q_len), block_kv_dq=fit_block(bk, k_len),
+        block_q_dkv=fit_block(bq, q_len), block_kv_dkv=fit_block(bk, k_len),
+        num_warps=fw, num_stages=fs, bwd_num_warps=bw, bwd_num_stages=bs,
     )

@@ -22,7 +22,7 @@ Two consumers:
 
 * public ``estimate_*_flops`` parity functions (the reference exposes one
   per op family);
-* the benchmark/roofline report, plus ``matmul_flops`` — the MXU work the
+* the benchmark/roofline report, plus ``matmul_flops`` — the matmul work the
   kernel actually schedules (full tiles, both matmuls) — used as the
   roofline numerator and as ``pl.CostEstimate`` input.
 """
@@ -103,8 +103,9 @@ def matmul_flops_forward(
     block_q: int = 128,
     block_kv: int = 128,
 ) -> float:
-    """MXU FLOPs the forward kernel actually schedules: ``2·Br·Bc·(d+v_d)``
-    per live tile (full tile sizes — padded edges run on the MXU too)."""
+    """Matmul FLOPs the forward kernel actually schedules: ``2·Br·Bc·(d+v_d)``
+    per live tile (full tile sizes — padded edges run on the tensor cores
+    too)."""
     pack = make_sync_pack(sync_mode, q_seq, k_seq)
     q_len = int(np.prod(q_seq))
     k_len = int(np.prod(k_seq))
@@ -124,15 +125,15 @@ def matmul_flops_backward(
     block_q: int = 128,
     block_kv: int = 128,
 ) -> float:
-    """Useful gradient MXU FLOPs: the canonical 5-GEMM backward count
+    """Useful gradient matmul FLOPs: the canonical 5-GEMM backward count
     ``2·Br·Bc·(3d + 2·v_d)`` per live tile (QKᵀ recompute, dV += Pᵀ·dO,
     dP = dO·Vᵀ, dQ += dS·K, dK += dSᵀ·Q — the reference's backward GEMM
     set, ``flash_attention.cu:1851-1940``).
 
     Deliberately does NOT credit the two-kernel split's duplicated QKᵀ and
     dO·Vᵀ recompute (7 GEMMs scheduled): benchmark numbers priced with
-    this function measure delivered gradient throughput, not scheduled MXU
-    occupancy.  Default 128×128 tiles give a config-independent count.
+    this function measure delivered gradient throughput, not scheduled
+    tensor-core occupancy.  Default 128×128 tiles give a config-independent count.
     """
     pack = make_sync_pack(sync_mode, q_seq, k_seq)
     q_len = int(np.prod(q_seq))

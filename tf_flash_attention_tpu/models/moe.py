@@ -3,7 +3,7 @@
 Expert weights carry a leading expert axis sharded over the mesh (``ep``);
 token dispatch/combine are einsums against a capacity-limited one-hot
 dispatch tensor, so under ``jit`` + sharding GSPMD lowers the
-dispatch/combine pair to the canonical all-to-alls over ICI.
+dispatch/combine pair to the canonical all-to-alls.
 
 Top-1 routing with capacity factor: each token goes to its argmax expert;
 tokens beyond an expert's capacity are dropped (standard GShard

@@ -3,7 +3,7 @@
 The transformer's layers are split into equal stages, one stage per
 position on the ``pipe`` axis; microbatches stream through the stages with
 activations handed to the next stage via ``jax.lax.ppermute``
-(point-to-point on ICI).  The schedule is classic GPipe: with ``M``
+(point-to-point between devices).  The schedule is classic GPipe: with ``M``
 microbatches and ``S`` stages the loop runs ``M + S - 1`` ticks; ticks a
 stage has no work for are masked (the pipeline bubble).  Data parallelism
 composes on an outer ``data`` axis (batch sharded; stage weights
@@ -25,6 +25,7 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..ops.backend import default_interpret
 from .transformer import ModelConfig, _attention_block, _mlp_block, _rms_norm
 
 __all__ = ["stack_stage_params", "pipeline_loss_fn", "make_pipeline_train_step"]
@@ -68,7 +69,7 @@ def pipeline_loss_fn(cfg: ModelConfig, mesh: Mesh, n_microbatches: int,
                      data_axis: str = "data", pipe_axis: str = AXIS_PIPE):
     """Build ``loss(stacked_params, tokens) -> scalar`` with pp (+ dp)."""
     if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
+        interpret = default_interpret()
     n_stages = int(mesh.shape[pipe_axis])
     M = n_microbatches
 

@@ -12,7 +12,7 @@ trained with a fully sharded step:
 * **sp** — between-block activations (norm inputs) sharded along the
   sequence dimension over the same ``model`` axis (Megatron sequence
   parallelism), expressed as sharding constraints that GSPMD lowers to
-  reduce-scatter/all-gather on ICI;
+  reduce-scatter/all-gather;
 * attention itself runs inside ``shard_map`` with heads on ``model`` and
   no collectives (``parallel/sharded.py``).
 
@@ -36,6 +36,7 @@ from ..block_sizes import BlockConfig
 from ..mask_rules import CausalRule, MaskRule
 from ..parallel.mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL
 from ..parallel.sharded import mha
+from ..ops.backend import default_interpret
 
 __all__ = ["ModelConfig", "init_params", "forward", "loss_fn", "train_step",
            "param_shardings", "make_sharded_train_step",
@@ -143,7 +144,7 @@ def quantize_model_weights(params):
     """Weight-only INT8 for the linear projections (inference path).
 
     Stores wq/wk/wv/wo/w1/w2/w3 as :class:`QuantizedTensor` (int8 payload +
-    per-output-channel scales); matmuls run int8 x int8 on the MXU with the
+    per-output-channel scales); matmuls run int8 x int8 with int32 accumulation, the
     scales applied to the int32 result (``ops/quant.int8_matmul``).
     """
     from ..ops.quant import quantize_weight_int8
@@ -267,7 +268,7 @@ def forward(cfg: ModelConfig, params, tokens, *, mesh: Optional[Mesh] = None,
     """Token ids ``(batch, seq)`` -> logits ``(batch, seq, vocab)``
     (optionally ``(logits, moe_aux_loss)``)."""
     if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
+        interpret = default_interpret()
 
     def sp(x):
         # Megatron-style sequence parallelism: between-block activations

@@ -1,7 +1,7 @@
 """Differentiable sequence-major attention core.
 
 ``attend`` wraps the forward/backward Pallas kernels in ``jax.custom_vjp``
-— the TPU-native replacement for the reference's TF gradient registrations
+— the replacement for the reference's TF gradient registrations
 (``flash_attention.py:392-471``).  Residuals are the reference's
 saved-tensor set ``(Q, K, V, O, l, m)`` (``flash_attention.py:374-390``)
 with the softmax stats kept at fp32.  Both the channel-first parity API

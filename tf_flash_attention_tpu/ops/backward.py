@@ -1,40 +1,31 @@
-"""Pallas backward kernels (recompute-based, lock-free).
+"""Backward flash-attention kernels (Pallas, Triton route).
 
-TPU-native replacement for the reference backward CUDA kernel
-(``BackwardImpl``, ``kernel/flash_attention.cu:1079-1967``).  The reference
-computes dQ, dK and dV in one KV-outer kernel, accumulating dQ directly in
-global memory under a per-(batch, q-block) spinlock.  On TPU the design is
-split into two single-writer kernels so no cross-block accumulation (and
-hence no locking) is ever needed:
+The reference computes dQ, dK and dV in one KV-outer kernel
+(``BackwardImpl``, ``kernel/flash_attention.cu:1079-1967``): one block per
+KV tile keeps dK and dV on chip while it loops over the Q tiles, and adds
+its share of dQ into device memory under a per-(batch, q-block) spinlock
+(``:1917-1928``).  Here the work is split into two passes, each with a
+single writer per output and no lock:
 
-* ``dQ`` kernel — q-outer grid, KV loop innermost, dQ accumulated in VMEM
-  scratch;
-* ``dK/dV`` kernel — kv-outer grid, Q loop innermost, dK/dV accumulated in
-  VMEM scratch (this iteration order matches the reference's own outer
-  loop, ``flash_attention.cu:1697-1965``).
+* ``_dkv_kernel`` — the reference's order: one program per (batch·kv
+  head, kv tile) walks the live q tiles of the transposed schedule for
+  every query head of its group, with dK and dV in registers;
+* ``_dq_kernel`` — one program per (batch·head, q tile) walks its live kv
+  tiles, with dQ in registers.
 
-Both kernels recompute the normalised probabilities ``P`` from
-``(Q, K, l, m)`` — the stored softmax statistics — instead of storing ``P``
-(the reference's approach, ``:1825-1846``), and share the precomputed
-``D = rowsum(dO ∘ O)`` (``:1882-1891``), which is evaluated once as a cheap
-fused XLA op.  Gradient math (``:1899-1940``):
+The one-pass alternative, the kv-outer kernel adding dQ through fp32
+``atomic_add`` (the reference's pattern without the lock), measured 5.7x
+slower than the two passes on an H100 at causal S=4096 (``PERF.md``):
+every kv tile adds a full (q_len, d) dQ share into device memory.
+
+Both passes recompute the normalised probabilities ``P`` from ``(Q, K,
+l, m)`` (the reference's saved-tensor contract,
+``flash_attention.py:374-390``) and share ``D = rowsum(dO ∘ O)``
+(``:1882-1891``), computed first by one fused XLA pass.  Gradient math
+(``:1899-1940``):
 
 ``P = exp(scale·QKᵀ − m)/l`` (masked → 0), ``dV += Pᵀ·dO``,
 ``dS = P ∘ (dO·Vᵀ − D) · scale``, ``dQ += dS·K``, ``dK += dSᵀ·Q``.
-
-Masked entries need no explicit re-select: they hold the finite
-``neg_inf_approx`` so the recompute underflows them to exactly 0 for live
-rows, and fully-masked / padded rows (``l = 0``) carry a ``+LARGE`` LSE
-that underflows the whole ``P`` row to 0.
-
-``(lse2, D)`` — the log2-domain log-sum-exp combining the stored ``(l, m)``
-pair, and the dO∘O rowsum — ride in one packed fp32 "stats" tensor of
-shape ``(B, q_pad, 8)`` (lanes 0..1) so row-aligned scalars satisfy the
-TPU block-shape rules without burning a full 128-lane tensor per quantity.
-
-Both kernels reuse the trace-time block-skip schedule (dead tiles are never
-loaded) and its interior/partial tile classing (interior tiles skip mask
-construction); the dK/dV kernel uses the transposed schedule.
 """
 
 from __future__ import annotations
@@ -46,587 +37,130 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..block_sizes import BlockConfig, LANE, VMEM_LIMIT, pad_to
+from ..block_sizes import BlockConfig, fit_block, pad_dim, pad_to
 from ..mask_rules import MaskRule
 from ..schedule import build_schedule
 from ..sync_modes import SyncPack
-from .forward import STATS_LANES
+from .backend import ROUTE, compiler_params, default_interpret
 from .kernel_common import (
-    INV_LOG2E, LOG2E, NEG_INF_F32, build_tile_mask, dot_precision,
+    INV_LOG2E, LOG2E, NEG_INF_F32, build_tile_mask, dot_nn, dot_nt, dot_tn,
 )
 
 __all__ = ["flash_backward"]
 
 
-def _recompute_p(q, k, lse2_row, mask, fast_softmax):
-    """Recompute normalised probabilities for one (bq, bk) tile.
+def _tile_grads(q, k, v, do, lse2, delta, mask):
+    """``(P, dS)`` of one (bq, bk) tile, dS without its ``scale`` factor.
 
-    Same log2-domain evaluation as the forward kernel: ``q`` arrives
-    pre-scaled by ``scale*log2(e)`` (folded into the small (bq, d) tile or
-    into the XLA-side pad, never a per-logit-tile multiply).  The stored
-    ``(l, m)`` pair is pre-combined XLA-side into one log2-domain LSE row
-    (``lse2 = m·log2e + log2 l``), so normalisation is fused into the
-    exp2's subtract — ``P = exp2(s·scale·log2e − lse2)`` — and the
-    per-tile ``1/l`` select+multiply pass of the naive form disappears.
-    Fully-masked rows carry ``lse2 = +LARGE`` so every entry underflows
-    to exactly 0 (the reference's ``l = 0 → P row = 0`` contract,
-    ``flash_attention.cu:1008-1016``).
-
-    ``fast_softmax`` mirrors the forward kernel's bf16 exp2 chain
-    (``forward.py``): ``s − lse2 ≤ −log2 l ≤ 0`` for live rows (the row
-    max contributes 1 to ``l``, so ``l ≥ 1``), hence ``exp2 ≤ 1`` with no
-    bf16 overflow, and the P matmuls consume bf16 p with no cast pass.
+    ``q`` arrives pre-scaled by ``scale·log2e`` and ``lse2 = m·log2e +
+    log2 l`` is the log2-domain log-sum-exp, so ``P = exp2(q·kᵀ − lse2)``
+    with the normalisation folded into the subtract.  Fully-masked and
+    padded rows carry ``lse2 = +LARGE``, which underflows their whole P
+    row to exactly 0 (the reference's ``l = 0`` contract).
     """
-    s = jax.lax.dot_general(
-        q, k, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-        precision=dot_precision(q.dtype),
-    )
+    s = dot_nt(q, k)
     if mask is not None:
         s = jnp.where(mask, s, NEG_INF_F32)
-    if fast_softmax:
-        return jnp.exp2((s - lse2_row).astype(jnp.bfloat16))
-    return jnp.exp2(s - lse2_row)
+    p = jnp.exp2(s - lse2[:, None])
+    dp = dot_nt(do, v)
+    return p, p * (dp - delta[:, None])
 
 
-def _tile_mask_or_none(masked, pack, rule, qb, kb, block_q, block_kv,
-                       q_len, k_len, q_len_padded, k_len_padded):
+def _mask_for(pack, rule, qb, kb, block_q, block_kv, q_len, k_len, q_pad,
+              k_pad, masked):
     if not masked:
         return None
     q_pos = qb * block_q + jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
     k_pos = kb * block_kv + jax.lax.broadcasted_iota(jnp.int32, (1, block_kv), 1)
-    return build_tile_mask(
-        pack, rule, q_pos, k_pos, q_len, k_len, q_len_padded, k_len_padded
-    )
-
-
-def _dq_kernel(
-    table_ref, counts_ref, needs_ref,
-    q_ref, k_ref, v_ref, do_ref, stats_ref,
-    dq_ref,
-    dq_acc,
-    *,
-    pack, rule, scale, q_len, k_len, q_len_padded, k_len_padded, num_steps,
-    has_interior, has_partial, kv_group, fast_softmax,
-):
-    qi = pl.program_id(1)
-    step = pl.program_id(2)
-    block_q = q_ref.shape[1]
-    block_kv = k_ref.shape[1]
-
-    @pl.when(step == 0)
-    def _init():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    def update(masked: bool):
-        kb = table_ref[qi, step]
-        mask = _tile_mask_or_none(masked, pack, rule, qi, kb, block_q, block_kv,
-                                  q_len, k_len, q_len_padded, k_len_padded)
-        # GQA: q/do/stats arrive group-blocked — (g, block_q, ·) windows,
-        # one DMA per step for every query head sharing this KV row — and
-        # the K/V window and the mask are shared across the member loop.
-        for mem in range(kv_group):
-            stats = stats_ref[mem]
-            lse2_row = stats[:, 0:1]
-            delta_row = stats[:, 1:2]
-            # q arrives pre-scaled by scale*log2(e) (XLA-side; it feeds
-            # only the P recompute in this kernel).
-            p = _recompute_p(q_ref[mem], k_ref[0], lse2_row, mask,
-                             fast_softmax)
-
-            dp = jax.lax.dot_general(
-                do_ref[mem], v_ref[0], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(v_ref.dtype),
-            )
-            # dS's *scale factor is deferred to the fp32 accumulator
-            # finalize — one (bq, d) multiply per q block instead of one
-            # (bq, bk) multiply per tile.
-            ds = p * (dp - delta_row)
-            dq_acc[mem] += jax.lax.dot_general(
-                ds.astype(k_ref.dtype), k_ref[0], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(k_ref.dtype),
-            )
-
-    in_bounds = step < counts_ref[qi]
-    if has_partial and has_interior:
-        needs = needs_ref[qi, step] == 1
-
-        @pl.when(in_bounds & needs)
-        def _masked():
-            update(True)
-
-        @pl.when(in_bounds & jnp.logical_not(needs))
-        def _interior():
-            update(False)
-    else:
-        @pl.when(in_bounds)
-        def _only():
-            update(has_partial)
-
-    @pl.when(step == num_steps - 1)
-    def _finalize():
-        dq_ref[...] = (dq_acc[...] * jnp.float32(scale)).astype(dq_ref.dtype)
+    return build_tile_mask(pack, rule, q_pos, k_pos, q_len, k_len, q_pad, k_pad)
 
 
 def _dkv_kernel(
     table_ref, counts_ref, needs_ref,
-    k_ref, v_ref, q_ref, do_ref, stats_ref,
-    dk_ref, dv_ref,
-    dk_acc, dv_acc,
+    k_ref, v_ref, q_ref, do_ref, lse_ref, delta_ref, dk_ref, dv_ref,
     *,
-    pack, rule, scale, q_len, k_len, q_len_padded, k_len_padded, num_steps,
-    has_interior, has_partial, kv_group, fast_softmax,
+    pack, rule, q_len, k_len, q_pad, k_pad, block_q, num_steps, group,
+    has_interior, has_partial,
 ):
-    ki = pl.program_id(1)
-    step = pl.program_id(2)
-    block_kv = k_ref.shape[1]
-    block_q = q_ref.shape[1]
+    kj = pl.program_id(0)
+    block_kv = k_ref.shape[0]
+    row = kj * num_steps
+    k = k_ref[...]
+    v = v_ref[...]
 
-    @pl.when(step == 0)
-    def _init():
-        dk_acc[...] = jnp.zeros_like(dk_acc)
-        dv_acc[...] = jnp.zeros_like(dv_acc)
+    def update(carry, mem, qb, masked):
+        dk, dv = carry
+        rows = pl.ds(pl.multiple_of(qb * block_q, block_q), block_q)
+        q = q_ref[mem, rows, :]
+        do = do_ref[mem, rows, :]
+        mask = _mask_for(pack, rule, qb, kj, block_q, block_kv, q_len, k_len,
+                         q_pad, k_pad, masked)
+        p, ds = _tile_grads(q, k, v, do, lse_ref[mem, rows],
+                            delta_ref[mem, rows], mask)
+        dv = dv + dot_tn(p.astype(do.dtype), do)
+        dk = dk + dot_tn(ds.astype(q.dtype), q)
+        return dk, dv
 
-    def update(masked: bool):
-        qb = table_ref[ki, step]
-        mask = _tile_mask_or_none(masked, pack, rule, qb, ki, block_q, block_kv,
-                                  q_len, k_len, q_len_padded, k_len_padded)
-        # GQA: q/do/stats arrive group-blocked — (g, block_q, ·) windows,
-        # one DMA per step for every query head sharing this KV row — and
-        # the mask is built once per step, not once per member.  (The
-        # round-3 design replayed the whole schedule once per member,
-        # streaming q/do g times; VERDICT r3 item 7.)
-        for mem in range(kv_group):
-            stats = stats_ref[mem]
-            lse2_row = stats[:, 0:1]
-            delta_row = stats[:, 1:2]
-            # k arrives pre-scaled by scale*log2(e) (XLA-side; it feeds
-            # only the P recompute in this kernel — dK is an output, and
-            # the dK GEMM consumes unscaled q).
-            p = _recompute_p(q_ref[mem], k_ref[0], lse2_row, mask,
-                             fast_softmax)
+    count = counts_ref[kj]
 
-            # dV += Pᵀ · dO
-            dv_acc[...] += jax.lax.dot_general(
-                p.astype(do_ref.dtype), do_ref[mem], (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(do_ref.dtype),
-            )
-            # dS = P ∘ (dO·Vᵀ − D); the *scale factor is deferred to the
-            # fp32 accumulator finalize (one (bk, d) multiply per kv block).
-            dp = jax.lax.dot_general(
-                do_ref[mem], v_ref[0], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(v_ref.dtype),
-            )
-            ds = p * (dp - delta_row)
-            # dK += dSᵀ · Q
-            dk_acc[...] += jax.lax.dot_general(
-                ds.astype(q_ref.dtype), q_ref[mem], (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(q_ref.dtype),
-            )
+    def member(mem, carry):
+        def step_body(step, c):
+            qb = table_ref[row + step]
+            if has_partial and has_interior:
+                return jax.lax.cond(
+                    needs_ref[row + step] != 0,
+                    lambda c: update(c, mem, qb, True),
+                    lambda c: update(c, mem, qb, False),
+                    c)
+            return update(c, mem, qb, has_partial)
+        return jax.lax.fori_loop(0, count, step_body, carry)
 
-    in_bounds = step < counts_ref[ki]
-    if has_partial and has_interior:
-        needs = needs_ref[ki, step] == 1
-
-        @pl.when(in_bounds & needs)
-        def _masked():
-            update(True)
-
-        @pl.when(in_bounds & jnp.logical_not(needs))
-        def _interior():
-            update(False)
-    else:
-        @pl.when(in_bounds)
-        def _only():
-            update(has_partial)
-
-    @pl.when(step == num_steps - 1)
-    def _finalize():
-        dk_ref[0] = (dk_acc[...] * jnp.float32(scale)).astype(dk_ref.dtype)
-        dv_ref[0] = dv_acc[...].astype(dv_ref.dtype)
+    init = (jnp.zeros(dk_ref.shape, jnp.float32),
+            jnp.zeros(dv_ref.shape, jnp.float32))
+    dk, dv = jax.lax.fori_loop(0, group, member, init)
+    # q is pre-scaled by scale·log2e, so dSᵀ·q carries the scale already
+    # and an extra log2e, removed here.
+    dk_ref[...] = (dk * jnp.float32(INV_LOG2E)).astype(dk_ref.dtype)
+    dv_ref[...] = dv.astype(dv_ref.dtype)
 
 
-def _fused_kernel(
+def _dq_kernel(
     table_ref, counts_ref, needs_ref,
-    k_ref, v_ref, q_ref, do_ref, stats_ref,
-    dk_ref, dv_ref, dq_ref,
-    dk_acc, dv_acc, dq_acc,
+    q_ref, do_ref, lse_ref, delta_ref, k_ref, v_ref, dq_ref,
     *,
-    pack, rule, scale, q_len, k_len, q_len_padded, k_len_padded, num_steps,
-    num_kv_blocks, has_interior, has_partial, kv_group, block_q, resident,
-    fast_softmax,
+    pack, rule, q_len, k_len, q_pad, k_pad, block_kv, num_steps,
+    has_interior, has_partial, scale,
 ):
-    """Fused single-pass backward: dQ, dK, dV in 5 scheduled GEMMs/tile.
+    qi = pl.program_id(0)
+    block_q = q_ref.shape[0]
+    row = qi * num_steps
+    q = q_ref[...]
+    do = do_ref[...]
+    lse2 = lse_ref[...]
+    delta = delta_ref[...]
 
-    The reference computes all three gradients in one KV-outer kernel with
-    dQ accumulated in global memory under a spinlock
-    (``flash_attention.cu:1079-1967``).  The round-2/3 TPU split paid 7
-    scheduled GEMMs (duplicated P and dO·Vᵀ recomputes) for the canonical
-    5.  This kernel restores the 5-GEMM schedule lock-free: the grid is
-    kv-outer like the reference, dK/dV accumulate in per-kv-block VMEM
-    scratch, and dQ accumulates into a *whole-sequence* fp32 VMEM scratch
-    that persists across the entire (kv-block, step) segment of one batch
-    row — no HBM round-trips, no partial-dQ outputs, no locks; the single
-    output write happens at segment end.  (Pallas forbids non-consecutive
-    output-block revisiting, so global accumulation a la the reference is
-    not even expressible — the persistent-scratch design is the TPU-native
-    equivalent.)  Fallback for sequences whose dQ scratch would not fit
-    VMEM is the two-kernel split (``_dq_kernel``/``_dkv_kernel``).
+    def update(dq, kb, masked):
+        cols = pl.ds(pl.multiple_of(kb * block_kv, block_kv), block_kv)
+        k = k_ref[cols, :]
+        mask = _mask_for(pack, rule, qi, kb, block_q, block_kv, q_len, k_len,
+                         q_pad, k_pad, masked)
+        _, ds = _tile_grads(q, k, v_ref[cols, :], do, lse2, delta, mask)
+        return dq + dot_nn(ds.astype(k.dtype), k)
 
-    GQA (``kv_group = g > 1``) streams group members as a *block*: q, dO
-    and stats arrive as ``(g, block_q, ·)`` windows — one DMA per step for
-    all members sharing the KV row (the round-3 design replayed the whole
-    schedule per member) — and the per-position mask is built once per
-    step, not once per member.
+    def body(step, dq):
+        kb = table_ref[row + step]
+        if has_partial and has_interior:
+            return jax.lax.cond(
+                needs_ref[row + step] != 0,
+                lambda c: update(c, kb, True),
+                lambda c: update(c, kb, False),
+                dq)
+        return update(dq, kb, has_partial)
 
-    Scale handling: q arrives pre-scaled by ``scale·log2e`` feeding the P
-    recompute; since dK = scale·dSᵀ·Q = (dSᵀ·q_scaled)/log2e, the
-    finalize multiplies dK by ``1/log2e`` and dQ by ``scale`` (k is
-    unscaled), deferring every scale to one per-block pass.
-    """
-    ki = pl.program_id(1)
-    step = pl.program_id(2)
-    block_kv = k_ref.shape[1]
-
-    @pl.when((ki == 0) & (step == 0))
-    def _init_dq():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    @pl.when(step == 0)
-    def _init_kv():
-        dk_acc[...] = jnp.zeros_like(dk_acc)
-        dv_acc[...] = jnp.zeros_like(dv_acc)
-
-    def update(masked: bool):
-        qb = table_ref[ki, step]
-        mask = _tile_mask_or_none(masked, pack, rule, qb, ki, block_q, block_kv,
-                                  q_len, k_len, q_len_padded, k_len_padded)
-        row = pl.multiple_of(qb * block_q, block_q)
-        for mem in range(kv_group):
-            if resident:
-                # q/do/stats windows cover the whole (padded) query
-                # sequence (fetched once per batch row); slice per step.
-                q_blk = q_ref[mem, pl.ds(row, block_q), :]
-                do_blk = do_ref[mem, pl.ds(row, block_q), :]
-                stats = stats_ref[mem, pl.ds(row, block_q), :]
-            else:
-                q_blk = q_ref[mem]
-                do_blk = do_ref[mem]
-                stats = stats_ref[mem]
-            lse2_row = stats[:, 0:1]
-            delta_row = stats[:, 1:2]
-            p = _recompute_p(q_blk, k_ref[0], lse2_row, mask, fast_softmax)
-
-            # dV += Pᵀ · dO
-            dv_acc[...] += jax.lax.dot_general(
-                p.astype(do_ref.dtype), do_blk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(do_ref.dtype),
-            )
-            dp = jax.lax.dot_general(
-                do_blk, v_ref[0], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(v_ref.dtype),
-            )
-            ds = p * (dp - delta_row)
-            # dK += dSᵀ · q_scaled  (descaled by 1/log2e at finalize)
-            dk_acc[...] += jax.lax.dot_general(
-                ds.astype(q_ref.dtype), q_blk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(q_ref.dtype),
-            )
-            # dQ += dS · K  (×scale at finalize)
-            dq_acc[mem, pl.ds(row, block_q), :] += jax.lax.dot_general(
-                ds.astype(k_ref.dtype), k_ref[0], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(k_ref.dtype),
-            )
-
-    in_bounds = step < counts_ref[ki]
-    if has_partial and has_interior:
-        needs = needs_ref[ki, step] == 1
-
-        @pl.when(in_bounds & needs)
-        def _masked():
-            update(True)
-
-        @pl.when(in_bounds & jnp.logical_not(needs))
-        def _interior():
-            update(False)
-    else:
-        @pl.when(in_bounds)
-        def _only():
-            update(has_partial)
-
-    @pl.when(step == num_steps - 1)
-    def _fin_kv():
-        dk_ref[0] = (dk_acc[...] * jnp.float32(INV_LOG2E)).astype(dk_ref.dtype)
-        dv_ref[0] = dv_acc[...].astype(dv_ref.dtype)
-
-    @pl.when((ki == num_kv_blocks - 1) & (step == num_steps - 1))
-    def _fin_dq():
-        dq_ref[...] = (dq_acc[...] * jnp.float32(scale)).astype(dq_ref.dtype)
-
-
-def _fused_window_kernel(
-    starts_ref, slots_ref,
-    k_ref, v_ref, q_ref, do_ref, stats_ref, masks_ref,
-    dk_ref, dv_ref, dq_ref,
-    dq_acc,
-    *,
-    scale, W, sub_kv, num_kv_blocks, kv_group, fast_softmax,
-):
-    """Fused single-window backward for narrow-band rules (round 5).
-
-    The backward twin of ``forward_banded._window_kernel``: each kv
-    sub-block's live q set is one contiguous ``W``-wide band at a
-    dynamic lane-aligned start (``schedule.window_band_table_t``), so
-    the whole 5-GEMM tile chain (P recompute, dV, dP, dK, dQ) runs ONCE
-    per kv sub-block over exactly the live band — no q-step loop, no
-    block-granularity band waste (measured 50-67 useful T128 on the 2d
-    w=8 case for the banded/table kernels vs ~100+ for this shape).
-    The grid kv block unrolls ``rk = block_kv // sub_kv`` independent
-    sub-chains so one sub-chain's MXU overlaps another's VPU (the same
-    measured win as the forward window kernel's q sub-blocks).
-
-    q arrives pre-scaled (P recompute), k unscaled; dK is descaled by
-    1/log2e and dQ scaled by ``scale`` at finalize, exactly as
-    ``_fused_kernel``.  dQ accumulates into the whole-sequence fp32
-    VMEM scratch with dynamic-slice read-modify-writes (overlapping
-    bands of consecutive kv sub-blocks serialise only the adds).
-    """
-    ki = pl.program_id(1)
-    block_kv = k_ref.shape[1]
-    rk = block_kv // sub_kv
-
-    @pl.when(ki == 0)
-    def _init_dq():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    for j in range(rk):
-        sub = ki * rk + j
-        start = pl.multiple_of(starts_ref[sub], LANE)
-        mask = masks_ref[slots_ref[sub]] != 0
-        k_sub = k_ref[0, j * sub_kv:(j + 1) * sub_kv, :]
-        v_sub = v_ref[0, j * sub_kv:(j + 1) * sub_kv, :]
-        dk_val = jnp.zeros((sub_kv, k_ref.shape[2]), jnp.float32)
-        dv_val = jnp.zeros((sub_kv, v_ref.shape[2]), jnp.float32)
-        for mem in range(kv_group):
-            q_band = q_ref[mem, pl.ds(start, W), :]
-            do_band = do_ref[mem, pl.ds(start, W), :]
-            stats = stats_ref[mem, pl.ds(start, W), :]
-            lse2_row = stats[:, 0:1]
-            delta_row = stats[:, 1:2]
-            p = _recompute_p(q_band, k_sub, lse2_row, mask, fast_softmax)
-            dv_val += jax.lax.dot_general(
-                p.astype(do_ref.dtype), do_band, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(do_ref.dtype),
-            )
-            dp = jax.lax.dot_general(
-                do_band, v_sub, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(v_ref.dtype),
-            )
-            ds = p * (dp - delta_row)
-            dk_val += jax.lax.dot_general(
-                ds.astype(q_ref.dtype), q_band, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(q_ref.dtype),
-            )
-            dq_acc[mem, pl.ds(start, W), :] += jax.lax.dot_general(
-                ds.astype(k_ref.dtype), k_sub, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(k_ref.dtype),
-            )
-        dk_ref[0, j * sub_kv:(j + 1) * sub_kv, :] = (
-            dk_val * jnp.float32(INV_LOG2E)).astype(dk_ref.dtype)
-        dv_ref[0, j * sub_kv:(j + 1) * sub_kv, :] = dv_val.astype(dv_ref.dtype)
-
-    @pl.when(ki == num_kv_blocks - 1)
-    def _fin_dq():
-        dq_ref[...] = (dq_acc[...] * jnp.float32(scale)).astype(dq_ref.dtype)
-
-
-def _fused_banded_kernel(
-    seg_ref,
-    k_ref, v_ref, q_ref, do_ref, stats_ref,
-    dk_ref, dv_ref, dq_ref,
-    dk_acc, dv_acc, dq_acc,
-    *,
-    pack, rule, scale, q_len, k_len, q_len_padded, k_len_padded,
-    num_kv_blocks, kv_group, block_q, fast_softmax,
-):
-    """Banded fused backward: the 5-GEMM kv-outer kernel with the q-step
-    grid axis turned into in-kernel ``fori_loop``s over segment bounds.
-
-    Same trade as the banded forward (``ops/forward_banded.py``): each kv
-    block executes exactly ``masked prefix → interior → masked suffix``
-    over the transposed schedule's live q band with zero per-tile grid
-    bookkeeping and no ``pl.when`` branches.  Requires q/dO/stats
-    residency (whole-row windows — the ``resident`` mode of
-    ``_fused_kernel``) and a banded transposed schedule; the table-driven
-    fused kernel remains the spec and the fallback.  Gradient math is
-    identical (``flash_attention.cu:1899-1940``); scale handling as in
-    ``_fused_kernel``.
-    """
-    ki = pl.program_id(1)
-    block_kv = k_ref.shape[1]
-    start = seg_ref[ki, 0]
-    i0 = seg_ref[ki, 1]
-    i1 = seg_ref[ki, 2]
-    end = seg_ref[ki, 3]
-
-    @pl.when(ki == 0)
-    def _init_dq():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    dk_acc[...] = jnp.zeros_like(dk_acc)
-    dv_acc[...] = jnp.zeros_like(dv_acc)
-
-    def body(qb, carry, masked):
-        mask = _tile_mask_or_none(masked, pack, rule, qb, ki, block_q,
-                                  block_kv, q_len, k_len,
-                                  q_len_padded, k_len_padded)
-        row = pl.multiple_of(qb * block_q, block_q)
-        for mem in range(kv_group):
-            q_blk = q_ref[mem, pl.ds(row, block_q), :]
-            do_blk = do_ref[mem, pl.ds(row, block_q), :]
-            stats = stats_ref[mem, pl.ds(row, block_q), :]
-            lse2_row = stats[:, 0:1]
-            delta_row = stats[:, 1:2]
-            p = _recompute_p(q_blk, k_ref[0], lse2_row, mask, fast_softmax)
-
-            dv_acc[...] += jax.lax.dot_general(
-                p.astype(do_ref.dtype), do_blk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(do_ref.dtype),
-            )
-            dp = jax.lax.dot_general(
-                do_blk, v_ref[0], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(v_ref.dtype),
-            )
-            ds = p * (dp - delta_row)
-            dk_acc[...] += jax.lax.dot_general(
-                ds.astype(q_ref.dtype), q_blk, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(q_ref.dtype),
-            )
-            dq_acc[mem, pl.ds(row, block_q), :] += jax.lax.dot_general(
-                ds.astype(k_ref.dtype), k_ref[0], (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(k_ref.dtype),
-            )
-        return carry
-
-    jax.lax.fori_loop(start, i0, functools.partial(body, masked=True), 0)
-    jax.lax.fori_loop(i0, i1, functools.partial(body, masked=False), 0)
-    jax.lax.fori_loop(i1, end, functools.partial(body, masked=True), 0)
-
-    dk_ref[0] = (dk_acc[...] * jnp.float32(INV_LOG2E)).astype(dk_ref.dtype)
-    dv_ref[0] = dv_acc[...].astype(dv_ref.dtype)
-
-    @pl.when(ki == num_kv_blocks - 1)
-    def _fin_dq():
-        dq_ref[...] = (dq_acc[...] * jnp.float32(scale)).astype(dq_ref.dtype)
-
-
-def _fused_qouter_kernel(
-    table_ref, counts_ref, needs_ref,
-    q_ref, k_ref, v_ref, do_ref, stats_ref,
-    dq_ref, dk_ref, dv_ref,
-    dq_acc, dk_acc, dv_acc,
-    *,
-    pack, rule, scale, q_len, k_len, q_len_padded, k_len_padded, num_steps,
-    num_q_blocks, block_kv, kv_group, fast_softmax,
-):
-    """Q-outer fused backward: the GQA orientation of the 5-GEMM kernel.
-
-    The kv-outer fused kernel needs a ``(g, q_pad, d)`` dQ accumulator —
-    16 MB at g=8, S=4096 — because dQ is per *query* head.  dK/dV are per
-    *KV* head, shared by the whole group, so the q-outer orientation only
-    needs ``(k_pad, d)``-class accumulators regardless of g: K/V ride
-    resident (one DMA per batch row), dK/dV accumulate across the entire
-    (q-block, step) segment in whole-sequence fp32 VMEM scratch, and dQ
-    uses a small per-q-block scratch.  Same 5 scheduled GEMMs per
-    (tile, member); same deferred-scale trick as the kv-outer kernel.
-    """
-    qi = pl.program_id(1)
-    step = pl.program_id(2)
-    block_q = q_ref.shape[1]
-
-    @pl.when((qi == 0) & (step == 0))
-    def _init_kv():
-        dk_acc[...] = jnp.zeros_like(dk_acc)
-        dv_acc[...] = jnp.zeros_like(dv_acc)
-
-    @pl.when(step == 0)
-    def _init_dq():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    def update(masked: bool):
-        kb = table_ref[qi, step]
-        col = pl.multiple_of(kb * block_kv, block_kv)
-        mask = _tile_mask_or_none(masked, pack, rule, qi, kb, block_q, block_kv,
-                                  q_len, k_len, q_len_padded, k_len_padded)
-        kk = k_ref[0, pl.ds(col, block_kv), :]
-        vv = v_ref[0, pl.ds(col, block_kv), :]
-        for mem in range(kv_group):
-            stats = stats_ref[mem]
-            lse2_row = stats[:, 0:1]
-            delta_row = stats[:, 1:2]
-            p = _recompute_p(q_ref[mem], kk, lse2_row, mask, fast_softmax)
-
-            dv_acc[pl.ds(col, block_kv), :] += jax.lax.dot_general(
-                p.astype(do_ref.dtype), do_ref[mem], (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(do_ref.dtype),
-            )
-            dp = jax.lax.dot_general(
-                do_ref[mem], vv, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(v_ref.dtype),
-            )
-            ds = p * (dp - delta_row)
-            # q is pre-scaled by scale*log2e: descale dK by 1/log2e and
-            # dQ by scale at the finalize writes.
-            dk_acc[pl.ds(col, block_kv), :] += jax.lax.dot_general(
-                ds.astype(q_ref.dtype), q_ref[mem], (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(q_ref.dtype),
-            )
-            dq_acc[mem] += jax.lax.dot_general(
-                ds.astype(k_ref.dtype), kk, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=dot_precision(k_ref.dtype),
-            )
-
-    in_bounds = step < counts_ref[qi]
-    needs = needs_ref[qi, step] == 1
-
-    @pl.when(in_bounds & needs)
-    def _masked():
-        update(True)
-
-    @pl.when(in_bounds & jnp.logical_not(needs))
-    def _interior():
-        update(False)
-
-    @pl.when(step == num_steps - 1)
-    def _fin_dq():
-        dq_ref[...] = (dq_acc[...] * jnp.float32(scale)).astype(dq_ref.dtype)
-
-    @pl.when((qi == num_q_blocks - 1) & (step == num_steps - 1))
-    def _fin_kv():
-        dk_ref[0] = (dk_acc[...] * jnp.float32(INV_LOG2E)).astype(dk_ref.dtype)
-        dv_ref[0] = dv_acc[...].astype(dv_ref.dtype)
+    dq = jax.lax.fori_loop(0, counts_ref[qi], body,
+                           jnp.zeros(dq_ref.shape, jnp.float32))
+    dq_ref[...] = (dq * jnp.float32(scale)).astype(dq_ref.dtype)
 
 
 def flash_backward(
@@ -636,9 +170,7 @@ def flash_backward(
     rule: MaskRule,
     config: BlockConfig,
     scale: Optional[float] = None,
-    interpret: bool = False,
-    fast_softmax: Optional[bool] = None,
-    fused: Optional[bool] = None,
+    interpret: Optional[bool] = None,
 ):
     """Compute ``(dQ, dK, dV)`` on sequence-major tensors.
 
@@ -646,52 +178,34 @@ def flash_backward(
     take ``(Q, K, V, O, l, m, dO)`` (``flash_attention.py:374-390``,
     ``flash_attention_backward.cc:181-344``).  ``l``/``m`` may be any float
     dtype; they are consumed in float32.
-
-    ``fast_softmax`` selects the bf16 exp2 P-recompute chain (auto: on for
-    16-bit inputs, matching the forward kernel's policy so forward P and
-    backward P quantize identically; exact f32 otherwise).
     """
+    if interpret is None:
+        interpret = default_interpret()
     in_dtype = q.dtype
-    if (in_dtype == jnp.float16 and not interpret) or jnp.dtype(in_dtype).itemsize == 1:
-        # Mosaic has no native f16/fp8 MXU path; compute in bf16 (see forward).
+    if jnp.dtype(in_dtype).itemsize == 1:
         b16 = lambda x: x.astype(jnp.bfloat16)
         dq, dk, dv = flash_backward(
             b16(q), b16(k), b16(v), b16(o), l, m, b16(do),
             pack=pack, rule=rule, config=config, scale=scale,
-            interpret=interpret, fast_softmax=fast_softmax)
+            interpret=interpret)
         return (dq.astype(in_dtype), dk.astype(in_dtype),
                 dv.astype(in_dtype))
     B, q_len, d = q.shape
     B_kv, k_len, v_d = v.shape
-    # GQA (see forward.py): K/V may carry fewer (batch·head) rows than Q.
     if B % B_kv:
         raise ValueError(f"q batch {B} not a multiple of kv batch {B_kv}")
     g = B // B_kv
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     scale = float(scale)
+    d_pad = pad_dim(d)
+    v_d_pad = pad_dim(v_d)
 
-    d_pad = pad_to(d, LANE)
-    v_d_pad = pad_to(v_d, LANE)
-
-    if fast_softmax is None:
-        # Auto policy mirrors the forward kernel (forward.py): bf16 exp2
-        # for 16-bit inputs so forward P and backward P quantize the same
-        # way; exact f32 otherwise.  FA_FAST_SOFTMAX=0 disables globally.
-        import os
-        fast_softmax = (jnp.dtype(in_dtype).itemsize == 2
-                        and os.environ.get("FA_FAST_SOFTMAX", "1") != "0")
-    fast_softmax = bool(fast_softmax)
-
-    # D = rowsum(dO ∘ O): one fused elementwise+reduce XLA op, shared by
-    # both kernels (the reference computes it per-tile on device, :1882-1891).
+    # D = rowsum(dO ∘ O): one fused XLA pass shared by both kernels.
     delta = jnp.sum(do.astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
-    # m is stored/published in the natural-log domain; the kernels work in
-    # the log2 domain.  (l, m) are pre-combined into one log2-domain LSE —
-    # ``lse2 = m·log2e + log2 l`` — so the in-kernel P recompute is a
-    # single fused subtract+exp2 with normalisation built in
-    # (see _recompute_p).  Fully-masked / padded rows (l = 0) get
-    # lse2 = +LARGE, which underflows every P entry to exactly 0.
+    # m is published in the natural-log domain; the kernels work in log2.
+    # (l, m) are combined into one log2-domain LSE; fully-masked / padded
+    # rows (l = 0) get +LARGE, which underflows every P entry to 0.
     l32 = l.astype(jnp.float32)
     lse2 = jnp.where(
         l32 > 0.0,
@@ -699,430 +213,93 @@ def flash_backward(
         + jnp.log2(jnp.maximum(l32, jnp.float32(1e-37))),
         jnp.float32(3e38),
     )
-    stats = jnp.stack([lse2, delta], axis=-1)
-    stats = jnp.pad(stats, ((0, 0), (0, 0), (0, STATS_LANES - 2)))
+    # q feeds only the P recompute and dK (whose extra log2e is removed in
+    # the kernel); prescaling it once here replaces a per-tile multiply.
+    q_scaled = (q.astype(jnp.float32) * jnp.float32(scale * LOG2E)).astype(in_dtype)
 
-    def padded(x, seq_to, feat_to=None, prescale=False):
-        if prescale:
-            # Fold scale*log2(e) into the tensor feeding the P-recompute
-            # matmul (q for the dQ kernel, k for the dK/dV kernel): one
-            # fused XLA pass, mirroring the forward kernel's prescaled Q.
-            x = (x.astype(jnp.float32)
-                 * jnp.float32(scale * LOG2E)).astype(x.dtype)
+    def padded(x, seq_to, feat_to=None, value=0.0):
         pads = [(0, 0), (0, seq_to - x.shape[1])]
-        pads.append((0, (feat_to - x.shape[2]) if feat_to else 0))
-        return jnp.pad(x, pads)
+        if x.ndim == 3:
+            pads.append((0, feat_to - x.shape[2]))
+        return jnp.pad(x, pads, constant_values=value)
 
-    compiler_params = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "parallel", "arbitrary"),
-        vmem_limit_bytes=VMEM_LIMIT,
-    )
+    params = compiler_params(config.bwd_num_warps, config.bwd_num_stages)
+    whole = pl.BlockSpec()
 
-    # ---- fused single-pass kernel (5 scheduled GEMMs) ----
-    # Auto policy: fuse whenever the whole-sequence dQ accumulator fits a
-    # conservative VMEM slice; very long sequences fall back to the
-    # two-kernel split below (kept as spec and fallback).
-    block_qf = min(config.block_q_dkv, pad_to(q_len, LANE))
-    block_kvf = min(config.block_kv_dkv, pad_to(k_len, LANE))
-    q_padf = pad_to(q_len, block_qf)
-    k_padf = pad_to(k_len, block_kvf)
-    if fused is None:
-        import os
-        # Measured (tools/exp_fused_bwd.py): the kv-outer fused kernel
-        # wins decisively at g<=2 (130.7 vs 92.2 useful TFLOP/s at g=1)
-        # but its (g, q_pad, d) dQ accumulator bloats with the group; for
-        # g>2 the q-outer orientation keeps the 5-GEMM schedule with
-        # group-size-independent accumulators.
-        if os.environ.get("FA_FUSED_BWD", "1") == "0":
-            fused = False
-        elif (g * q_padf * d_pad * 4 <= 24 * 1024 * 1024
-              and (g == 1 or block_kvf <= 512)):
-            # kv-outer fused wins at every group size PROVIDED the kv
-            # window stays <=512 for grouped runs: at g=8, (512,512)
-            # blocks measure 1.17 ms vs the split's 1.44, while
-            # (512,1024) collapses to 2.66 (the g-member loop x 1024-wide
-            # windows breaks the pipeline) — docs/TUNING.md round 4.
-            # The solver default (512,512) satisfies this.
-            fused = "kv"
-        else:
-            # Oversized dQ accumulator (very long q) or a wide-kv grouped
-            # config: split kernels.  fused="q" remains available
-            # explicitly (measured slower, docs/TUNING.md).
-            fused = False
-    if fused == "q" or (fused is True and g > 2):
-        sched_q = build_schedule(pack, rule, block_qf, block_kvf)
-        qkernel = functools.partial(
-            _fused_qouter_kernel, pack=pack, rule=rule, scale=scale,
-            q_len=q_len, k_len=k_len,
-            q_len_padded=q_padf, k_len_padded=k_padf,
-            num_steps=sched_q.num_steps,
-            num_q_blocks=sched_q.num_q_blocks,
-            block_kv=block_kvf,
-            kv_group=g,
-            fast_softmax=fast_softmax,
-        )
-        qg_idx = lambda b, qi, s, t, c, n: (b, qi, 0)
-        kres_idx = lambda b, qi, s, t, c, n: (b, 0, 0)
-        dq, dk, dv = pl.pallas_call(
-            qkernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=3,
-                grid=(B_kv, sched_q.num_q_blocks, sched_q.num_steps),
-                in_specs=[
-                    pl.BlockSpec((g, block_qf, d_pad), qg_idx),
-                    pl.BlockSpec((1, k_padf, d_pad), kres_idx),
-                    pl.BlockSpec((1, k_padf, v_d_pad), kres_idx),
-                    pl.BlockSpec((g, block_qf, v_d_pad), qg_idx),
-                    pl.BlockSpec((g, block_qf, STATS_LANES), qg_idx),
-                ],
-                out_specs=[
-                    pl.BlockSpec((g, block_qf, d_pad), qg_idx),
-                    pl.BlockSpec((1, k_padf, d_pad), kres_idx),
-                    pl.BlockSpec((1, k_padf, v_d_pad), kres_idx),
-                ],
-                scratch_shapes=[
-                    pltpu.VMEM((g, block_qf, d_pad), jnp.float32),
-                    pltpu.VMEM((k_padf, d_pad), jnp.float32),
-                    pltpu.VMEM((k_padf, v_d_pad), jnp.float32),
-                ],
-            ),
-            out_shape=[
-                jax.ShapeDtypeStruct((B, q_padf, d_pad), in_dtype),
-                jax.ShapeDtypeStruct((B_kv, k_padf, d_pad), in_dtype),
-                jax.ShapeDtypeStruct((B_kv, k_padf, v_d_pad), in_dtype),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-                vmem_limit_bytes=VMEM_LIMIT,
-            ),
-            interpret=interpret,
-        )(jnp.asarray(sched_q.kv_table), jnp.asarray(sched_q.kv_counts),
-          jnp.asarray(sched_q.needs_mask),
-          padded(q, q_padf, d_pad, prescale=True), padded(k, k_padf, d_pad),
-          padded(v, k_padf, v_d_pad), padded(do, q_padf, v_d_pad),
-          padded(stats, q_padf))
-        return (
-            dq[:, :q_len, :d],
-            dk[:, :k_len, :d],
-            dv[:, :k_len, :v_d],
-        )
-    if fused:
-        import os as _os
-        sched_t = build_schedule(pack, rule, block_qf, block_kvf).transpose()
-        n_kv_blocks = sched_t.num_q_blocks  # rows of the transposed table
-        # q/do/stats residency: whole-row windows fetched once per batch
-        # row instead of one (block_q, ·) window per (kv-block, step) —
-        # the same measured DMA win as the banded forward.
-        resident = (
-            _os.environ.get("FA_RESIDENT_BWD", "1") != "0"
-            and g * q_padf * (2 * (d_pad + v_d_pad)
-                              * jnp.dtype(in_dtype).itemsize + 4 * STATS_LANES)
-            <= 28 * 1024 * 1024
-        )
-        # Single-window fast path (round 5): narrow-band rules run the
-        # whole 5-GEMM chain once per kv sub-block over a dynamic-start
-        # contiguous q band — the backward twin of the forward window
-        # kernel (see _fused_window_kernel).
-        if resident and _os.environ.get("FA_WINDOW_BWD", "1") != "0":
-            from ..schedule import window_band_table_t
-            cands = []
-            for sk in (512, 256, 128):
-                if sk > block_kvf or block_kvf % sk:
-                    continue
-                wt_c = window_band_table_t(pack, rule, sk, q_len, k_len,
-                                           q_padf, k_padf)
-                if wt_c is not None:
-                    cands.append((sk, wt_c, k_padf * wt_c[1]))
-            if cands:
-                amin = min(a for _, _, a in cands)
-                sub_kv, wt_t, _ = next(c for c in cands
-                                       if c[2] <= 1.30 * amin)
-                starts_t, Wq, slots_t, masks_t = wt_t
-                grid_bkv = block_kvf
-                # interleaved-pair A/B (2d w=8, same window): grid 1024
-                # beats 512 by ~20% (105.3 vs 87.8 useful T128) — more
-                # unrolled sub-chains per step amortise step overhead
-                if (grid_bkv < 1024 and k_padf % (2 * grid_bkv) == 0
-                        and 2 * grid_bkv * Wq * 4 <= 8 << 20):
-                    grid_bkv *= 2
-                while grid_bkv > sub_kv and grid_bkv * Wq * 4 > 8 << 20:
-                    grid_bkv //= 2
-                n_kv = k_padf // grid_bkv
-                wkernel = functools.partial(
-                    _fused_window_kernel, scale=scale, W=Wq,
-                    sub_kv=sub_kv, num_kv_blocks=n_kv, kv_group=g,
-                    fast_softmax=fast_softmax)
-                kv_idx = lambda b, ki, *p: (b, ki, 0)
-                qres_idx = lambda b, ki, *p: (b, 0, 0)
-                dk, dv, dq = pl.pallas_call(
-                    wkernel,
-                    grid_spec=pltpu.PrefetchScalarGridSpec(
-                        num_scalar_prefetch=2,
-                        grid=(B_kv, n_kv),
-                        in_specs=[
-                            pl.BlockSpec((1, grid_bkv, d_pad), kv_idx),
-                            pl.BlockSpec((1, grid_bkv, v_d_pad), kv_idx),
-                            pl.BlockSpec((g, q_padf, d_pad), qres_idx),
-                            pl.BlockSpec((g, q_padf, v_d_pad), qres_idx),
-                            pl.BlockSpec((g, q_padf, STATS_LANES), qres_idx),
-                            pl.BlockSpec((masks_t.shape[0], Wq, sub_kv),
-                                         lambda b, ki, *p: (0, 0, 0)),
-                        ],
-                        out_specs=[
-                            pl.BlockSpec((1, grid_bkv, d_pad), kv_idx),
-                            pl.BlockSpec((1, grid_bkv, v_d_pad), kv_idx),
-                            pl.BlockSpec((g, q_padf, d_pad), qres_idx),
-                        ],
-                        scratch_shapes=[
-                            pltpu.VMEM((g, q_padf, d_pad), jnp.float32),
-                        ],
-                    ),
-                    out_shape=[
-                        jax.ShapeDtypeStruct((B_kv, k_padf, d_pad), in_dtype),
-                        jax.ShapeDtypeStruct((B_kv, k_padf, v_d_pad),
-                                             in_dtype),
-                        jax.ShapeDtypeStruct((B, q_padf, d_pad), in_dtype),
-                    ],
-                    compiler_params=pltpu.CompilerParams(
-                        dimension_semantics=("parallel", "arbitrary"),
-                        vmem_limit_bytes=VMEM_LIMIT,
-                    ),
-                    interpret=interpret,
-                )(jnp.asarray(starts_t), jnp.asarray(slots_t),
-                  padded(k, k_padf, d_pad), padded(v, k_padf, v_d_pad),
-                  padded(q, q_padf, d_pad, prescale=True),
-                  padded(do, q_padf, v_d_pad), padded(stats, q_padf),
-                  jnp.asarray(masks_t))
-                return (
-                    dq[:, :q_len, :d],
-                    dk[:, :k_len, :d],
-                    dv[:, :k_len, :v_d],
-                )
+    # ---- kv-outer pass: dK, dV ----
+    block_q = fit_block(config.block_q_dkv, q_len)
+    block_kv = fit_block(config.block_kv_dkv, k_len)
+    q_pad = pad_to(q_len, block_q)
+    k_pad = pad_to(k_len, block_kv)
+    sched_t = build_schedule(pack, rule, block_q, block_kv).transpose()
+    grouped = lambda x, feat: padded(x, q_pad, feat).reshape(
+        (B_kv, g, q_pad) + ((feat,) if feat else ()))
+    q_g = grouped(q_scaled, d_pad)
+    do_g = grouped(do, v_d_pad)
+    lse_g = padded(lse2, q_pad, value=3e38).reshape(B_kv, g, q_pad)
+    delta_g = grouped(delta, None)
+    kp = padded(k, k_pad, d_pad)
+    vp = padded(v, k_pad, v_d_pad)
 
-        # Banded fast path (round 5): when the transposed schedule is one
-        # contiguous band per kv row and q/dO/stats ride resident, the
-        # q-step grid axis becomes in-kernel fori_loops over the segment
-        # bounds — the backward twin of ops/forward_banded.py.
-        seg_t = sched_t.banded_segments() if resident else None
-        if seg_t is not None and _os.environ.get("FA_BANDED_BWD", "1") != "0":
-            bkernel = functools.partial(
-                _fused_banded_kernel, pack=pack, rule=rule, scale=scale,
-                q_len=q_len, k_len=k_len,
-                q_len_padded=q_padf, k_len_padded=k_padf,
-                num_kv_blocks=n_kv_blocks,
-                kv_group=g, block_q=block_qf,
-                fast_softmax=fast_softmax,
-            )
-            kv_idx = lambda b, ki, *p: (b, ki, 0)
-            qres_idx = lambda b, ki, *p: (b, 0, 0)
-            dk, dv, dq = pl.pallas_call(
-                bkernel,
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=1,
-                    grid=(B_kv, n_kv_blocks),
-                    in_specs=[
-                        pl.BlockSpec((1, block_kvf, d_pad), kv_idx),
-                        pl.BlockSpec((1, block_kvf, v_d_pad), kv_idx),
-                        pl.BlockSpec((g, q_padf, d_pad), qres_idx),
-                        pl.BlockSpec((g, q_padf, v_d_pad), qres_idx),
-                        pl.BlockSpec((g, q_padf, STATS_LANES), qres_idx),
-                    ],
-                    out_specs=[
-                        pl.BlockSpec((1, block_kvf, d_pad), kv_idx),
-                        pl.BlockSpec((1, block_kvf, v_d_pad), kv_idx),
-                        pl.BlockSpec((g, q_padf, d_pad), qres_idx),
-                    ],
-                    scratch_shapes=[
-                        pltpu.VMEM((block_kvf, d_pad), jnp.float32),
-                        pltpu.VMEM((block_kvf, v_d_pad), jnp.float32),
-                        pltpu.VMEM((g, q_padf, d_pad), jnp.float32),
-                    ],
-                ),
-                out_shape=[
-                    jax.ShapeDtypeStruct((B_kv, k_padf, d_pad), in_dtype),
-                    jax.ShapeDtypeStruct((B_kv, k_padf, v_d_pad), in_dtype),
-                    jax.ShapeDtypeStruct((B, q_padf, d_pad), in_dtype),
-                ],
-                compiler_params=pltpu.CompilerParams(
-                    dimension_semantics=("parallel", "arbitrary"),
-                    vmem_limit_bytes=VMEM_LIMIT,
-                ),
-                interpret=interpret,
-            )(jnp.asarray(seg_t),
-              padded(k, k_padf, d_pad), padded(v, k_padf, v_d_pad),
-              padded(q, q_padf, d_pad, prescale=True),
-              padded(do, q_padf, v_d_pad), padded(stats, q_padf))
-            return (
-                dq[:, :q_len, :d],
-                dk[:, :k_len, :d],
-                dv[:, :k_len, :v_d],
-            )
-        fkernel = functools.partial(
-            _fused_kernel, pack=pack, rule=rule, scale=scale,
-            q_len=q_len, k_len=k_len,
-            q_len_padded=q_padf, k_len_padded=k_padf,
-            num_steps=sched_t.num_steps,
-            num_kv_blocks=n_kv_blocks,
-            has_interior=bool((sched_t.live & ~sched_t.partial).any()),
-            has_partial=bool(sched_t.partial.any()),
-            kv_group=g,
-            block_q=block_qf,
-            resident=resident,
-            fast_softmax=fast_softmax,
-        )
-        kv_idx = lambda b, ki, s, t, c, n: (b, ki, 0)
-        qg_idx = ((lambda b, ki, s, t, c, n: (b, 0, 0)) if resident
-                  else (lambda b, ki, s, t, c, n: (b, t[ki, s], 0)))
-        q_win = q_padf if resident else block_qf
-        dq_idx = lambda b, ki, s, t, c, n: (b, 0, 0)
-        dk, dv, dq = pl.pallas_call(
-            fkernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=3,
-                grid=(B_kv, n_kv_blocks, sched_t.num_steps),
-                in_specs=[
-                    pl.BlockSpec((1, block_kvf, d_pad), kv_idx),
-                    pl.BlockSpec((1, block_kvf, v_d_pad), kv_idx),
-                    pl.BlockSpec((g, q_win, d_pad), qg_idx),
-                    pl.BlockSpec((g, q_win, v_d_pad), qg_idx),
-                    pl.BlockSpec((g, q_win, STATS_LANES), qg_idx),
-                ],
-                out_specs=[
-                    pl.BlockSpec((1, block_kvf, d_pad), kv_idx),
-                    pl.BlockSpec((1, block_kvf, v_d_pad), kv_idx),
-                    pl.BlockSpec((g, q_padf, d_pad), dq_idx),
-                ],
-                scratch_shapes=[
-                    pltpu.VMEM((block_kvf, d_pad), jnp.float32),
-                    pltpu.VMEM((block_kvf, v_d_pad), jnp.float32),
-                    pltpu.VMEM((g, q_padf, d_pad), jnp.float32),
-                ],
-            ),
-            out_shape=[
-                jax.ShapeDtypeStruct((B_kv, k_padf, d_pad), in_dtype),
-                jax.ShapeDtypeStruct((B_kv, k_padf, v_d_pad), in_dtype),
-                jax.ShapeDtypeStruct((B, q_padf, d_pad), in_dtype),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-                vmem_limit_bytes=VMEM_LIMIT,
-            ),
-            interpret=interpret,
-        )(jnp.asarray(sched_t.kv_table), jnp.asarray(sched_t.kv_counts),
-          jnp.asarray(sched_t.needs_mask),
-          padded(k, k_padf, d_pad), padded(v, k_padf, v_d_pad),
-          padded(q, q_padf, d_pad, prescale=True),
-          padded(do, q_padf, v_d_pad), padded(stats, q_padf))
-        return (
-            dq[:, :q_len, :d],
-            dk[:, :k_len, :d],
-            dv[:, :k_len, :v_d],
-        )
-
-    # ---- dQ kernel ----
-    block_q = min(config.block_q_dq, pad_to(q_len, LANE))
-    block_kv = min(config.block_kv_dq, pad_to(k_len, LANE))
-    q_pad_len = pad_to(q_len, block_q)
-    k_pad_len = pad_to(k_len, block_kv)
-    sched = build_schedule(pack, rule, block_q, block_kv)
-
-    dq_kernel = functools.partial(
-        _dq_kernel, pack=pack, rule=rule, scale=scale,
-        q_len=q_len, k_len=k_len,
-        q_len_padded=q_pad_len, k_len_padded=k_pad_len,
-        num_steps=sched.num_steps,
-        has_interior=bool((sched.live & ~sched.partial).any()),
-        has_partial=bool(sched.partial.any()),
-        kv_group=g,
-        fast_softmax=fast_softmax,
-    )
-    # q/do/stats/dq group-blocked over the (batch·head) axis: grid runs
-    # over KV rows; one (g, block_q, ·) DMA per step serves every query
-    # head of the group, and the K/V window is fetched once per step
-    # (the round-3 layout streamed K/V once per member).
-    qi_spec = lambda b, qi, s, t, c, n: (b, qi, 0)
-    kv_spec = lambda b, qi, s, t, c, n: (b, t[qi, s], 0)
-    dq = pl.pallas_call(
-        dq_kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(B_kv, sched.num_q_blocks, sched.num_steps),
-            in_specs=[
-                pl.BlockSpec((g, block_q, d_pad), qi_spec),
-                pl.BlockSpec((1, block_kv, d_pad), kv_spec),
-                pl.BlockSpec((1, block_kv, v_d_pad), kv_spec),
-                pl.BlockSpec((g, block_q, v_d_pad), qi_spec),
-                pl.BlockSpec((g, block_q, STATS_LANES), qi_spec),
-            ],
-            out_specs=[pl.BlockSpec((g, block_q, d_pad), qi_spec)],
-            scratch_shapes=[pltpu.VMEM((g, block_q, d_pad), jnp.float32)],
-        ),
-        out_shape=[jax.ShapeDtypeStruct((B, q_pad_len, d_pad), in_dtype)],
-        compiler_params=compiler_params,
-        interpret=interpret,
-    )(jnp.asarray(sched.kv_table), jnp.asarray(sched.kv_counts),
-      jnp.asarray(sched.needs_mask),
-      padded(q, q_pad_len, d_pad, prescale=True), padded(k, k_pad_len, d_pad),
-      padded(v, k_pad_len, v_d_pad), padded(do, q_pad_len, v_d_pad),
-      padded(stats, q_pad_len))[0]
-
-    # ---- dK/dV kernel ----
-    block_q2 = min(config.block_q_dkv, pad_to(q_len, LANE))
-    block_kv2 = min(config.block_kv_dkv, pad_to(k_len, LANE))
-    q_pad2 = pad_to(q_len, block_q2)
-    k_pad2 = pad_to(k_len, block_kv2)
-    sched_t = build_schedule(pack, rule, block_q2, block_kv2).transpose()
-
-    n_steps_t = sched_t.num_steps
-    dkv_kernel = functools.partial(
-        _dkv_kernel, pack=pack, rule=rule, scale=scale,
-        q_len=q_len, k_len=k_len,
-        q_len_padded=q_pad2, k_len_padded=k_pad2,
-        num_steps=n_steps_t,
-        has_interior=bool((sched_t.live & ~sched_t.partial).any()),
-        has_partial=bool(sched_t.partial.any()),
-        kv_group=g,
-        fast_softmax=fast_softmax,
-    )
-    ki_spec = lambda b, ki, s, t, c, n: (b, ki, 0)
-    # q/do/stats group-blocked: one (g, block_q, ·) window per schedule
-    # step serves every member; the member loop runs in-kernel.
-    qb_spec = lambda b, ki, s, t, c, n: (b, t[ki, s], 0)
+    kv_tile = lambda feat: pl.BlockSpec((None, block_kv, feat),
+                                        lambda kj, b: (b, kj, 0))
+    group_rows = lambda *tail: pl.BlockSpec(
+        (None, g, q_pad) + tail, lambda kj, b: (b, 0, 0) + (0,) * len(tail))
     dk, dv = pl.pallas_call(
-        dkv_kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(B_kv, sched_t.num_q_blocks, n_steps_t),
-            in_specs=[
-                pl.BlockSpec((1, block_kv2, d_pad), ki_spec),
-                pl.BlockSpec((1, block_kv2, v_d_pad), ki_spec),
-                pl.BlockSpec((g, block_q2, d_pad), qb_spec),
-                pl.BlockSpec((g, block_q2, v_d_pad), qb_spec),
-                pl.BlockSpec((g, block_q2, STATS_LANES), qb_spec),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, block_kv2, d_pad), ki_spec),
-                pl.BlockSpec((1, block_kv2, v_d_pad), ki_spec),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((block_kv2, d_pad), jnp.float32),
-                pltpu.VMEM((block_kv2, v_d_pad), jnp.float32),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((B_kv, k_pad2, d_pad), in_dtype),
-            jax.ShapeDtypeStruct((B_kv, k_pad2, v_d_pad), in_dtype),
-        ],
-        compiler_params=compiler_params,
+        functools.partial(
+            _dkv_kernel, pack=pack, rule=rule, q_len=q_len, k_len=k_len,
+            q_pad=q_pad, k_pad=k_pad, block_q=block_q,
+            num_steps=sched_t.num_steps, group=g,
+            has_interior=bool((sched_t.live & ~sched_t.partial).any()),
+            has_partial=bool(sched_t.partial.any())),
+        grid=(sched_t.num_q_blocks, B_kv),
+        in_specs=[whole, whole, whole,
+                  kv_tile(d_pad), kv_tile(v_d_pad),
+                  group_rows(d_pad), group_rows(v_d_pad),
+                  group_rows(), group_rows()],
+        out_specs=[kv_tile(d_pad), kv_tile(v_d_pad)],
+        out_shape=[jax.ShapeDtypeStruct((B_kv, k_pad, d_pad), in_dtype),
+                   jax.ShapeDtypeStruct((B_kv, k_pad, v_d_pad), in_dtype)],
+        backend=ROUTE,
+        compiler_params=params,
         interpret=interpret,
-    )(jnp.asarray(sched_t.kv_table), jnp.asarray(sched_t.kv_counts),
-      jnp.asarray(sched_t.needs_mask),
-      padded(k, k_pad2, d_pad, prescale=True), padded(v, k_pad2, v_d_pad),
-      padded(q, q_pad2, d_pad), padded(do, q_pad2, v_d_pad),
-      padded(stats, q_pad2))
+        name="fa_backward_dkv",
+    )(jnp.asarray(sched_t.kv_table.reshape(-1)),
+      jnp.asarray(sched_t.kv_counts),
+      jnp.asarray(sched_t.needs_mask.reshape(-1)),
+      kp, vp, q_g, do_g, lse_g, delta_g)
+    dk, dv = dk[:, :k_len, :d], dv[:, :k_len, :v_d]
 
-    return (
-        dq[:, :q_len, :d],
-        dk[:, :k_len, :d],
-        dv[:, :k_len, :v_d],
-    )
+    # ---- q-outer pass: dQ ----
+    block_q = fit_block(config.block_q_dq, q_len)
+    block_kv = fit_block(config.block_kv_dq, k_len)
+    q_pad = pad_to(q_len, block_q)
+    k_pad = pad_to(k_len, block_kv)
+    sched = build_schedule(pack, rule, block_q, block_kv)
+    q_tile = lambda *tail: pl.BlockSpec(
+        (None, block_q) + tail, lambda qi, b: (b, qi) + (0,) * len(tail))
+    kv_row = lambda feat: pl.BlockSpec((None, k_pad, feat),
+                                       lambda qi, b: (b // g, 0, 0))
+    dq = pl.pallas_call(
+        functools.partial(
+            _dq_kernel, pack=pack, rule=rule, q_len=q_len, k_len=k_len,
+            q_pad=q_pad, k_pad=k_pad, block_kv=block_kv,
+            num_steps=sched.num_steps,
+            has_interior=bool((sched.live & ~sched.partial).any()),
+            has_partial=bool(sched.partial.any()), scale=scale),
+        grid=(sched.num_q_blocks, B),
+        in_specs=[whole, whole, whole,
+                  q_tile(d_pad), q_tile(v_d_pad), q_tile(), q_tile(),
+                  kv_row(d_pad), kv_row(v_d_pad)],
+        out_specs=q_tile(d_pad),
+        out_shape=jax.ShapeDtypeStruct((B, q_pad, d_pad), in_dtype),
+        backend=ROUTE,
+        compiler_params=params,
+        interpret=interpret,
+        name="fa_backward_dq",
+    )(jnp.asarray(sched.kv_table.reshape(-1)), jnp.asarray(sched.kv_counts),
+      jnp.asarray(sched.needs_mask.reshape(-1)),
+      padded(q_scaled, q_pad, d_pad), padded(do, q_pad, v_d_pad),
+      padded(lse2, q_pad, value=3e38), padded(delta, q_pad),
+      padded(k, k_pad, d_pad), padded(v, k_pad, v_d_pad))
+    return dq[:, :q_len, :d], dk, dv

@@ -2,13 +2,13 @@
 
 The float64 path.  The CUDA reference compiles real fp64 kernels (explicit
 instantiations ``kernel/flash_attention.cu:2450-2487``; internal-test
-threshold 1e-9 ``kernel/internal_test.cu:15-28``).  TPU has no hardware
-fp64 MXU, so a Pallas kernel is out of scope — but the round-1 fallback
-(the dense oracle, ``ops/reference.py``) materialised the full
-``q_len x k_len`` score tensor, defeating flash's memory point at exactly
-the long sequences that matter.
+threshold 1e-9 ``kernel/internal_test.cu:15-28``).  Triton's matmul has
+no fp64 tensor-core path, so the kernels do not take fp64; the dense
+oracle (``ops/reference.py``) would materialise the full ``q_len x
+k_len`` score tensor, defeating flash's memory point at exactly the long
+sequences that matter.
 
-This module is the fix: the same online-softmax recurrence as the Pallas
+This module is the fp64 path: the same online-softmax recurrence as the Pallas
 kernels (``flash_attention.cu:974-1035``), expressed as ``lax.scan`` over
 kv blocks inside ``lax.map`` over q blocks, reusing the trace-time
 block-skip schedule (``schedule.py``) so masked-out tiles are never

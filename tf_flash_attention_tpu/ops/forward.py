@@ -1,30 +1,25 @@
-"""Pallas forward flash-attention kernel.
+"""Forward flash-attention kernel (Pallas, Triton route).
 
-TPU-native re-design of the reference forward CUDA kernel
-(``ForwardImpl``, ``kernel/flash_attention.cu:425-1077``).  Architectural
-inversion relative to the reference: the CUDA kernel is KV-outer (one thread
-block per KV tile, looping over all Q tiles, serialised by a global
-spinlock); on TPU the grid is Q-outer with the live-KV loop as the
-innermost sequential grid dimension, carrying ``(m, l, acc)`` in VMEM
-scratch — mathematically identical online-softmax merging
-(``flash_attention.cu:974-1035``) with no locks, no pre-normalised global
-writes (normalisation happens once, at the end of the KV loop), and
-single-writer outputs.
+A re-design of the reference forward CUDA kernel (``ForwardImpl``,
+``kernel/flash_attention.cu:425-1077``).  The reference is KV-outer: one
+block per KV tile loops over all Q tiles and merges into pre-normalised
+global ``O/l/m`` under a per-(batch, q-block) spinlock (``:890-897``).
+Here the order is Q-outer: one program owns one (batch·head, q tile),
+keeps the fp32 ``(acc, m, l)`` carry in registers across an in-program
+loop over that tile's live kv tiles, and writes its outputs once.  The
+merge is the same online-softmax recurrence (``:974-1035``) with no lock,
+no pre-normalised global writes and a single writer per output.
 
-Block skipping is compiled in: the trace-time schedule (``schedule.py``)
-provides a per-q-block table of live kv blocks consumed via scalar
-prefetch, so masked-out tiles are never fetched from HBM (the reference
-instead tests ``IsSkipped`` per tile on device,
-``flash_attention.cu:865-871``).  Live tiles are further classed
-interior/partial: interior tiles take a branch with no mask construction
-at all (pure MXU + softmax), a fast path the reference lacks (it runs
-``Check`` per element on every live tile, ``flash_attention.cu:915-947``).
+Block skipping: the trace-time schedule (``schedule.py``) lists, per q
+tile, the live kv tiles and whether each needs the element mask.  Each
+program reads its own row of those int32 tables, so a dead tile is never
+loaded (the reference tested ``IsSkipped`` per tile, ``:865-871``), and an
+interior tile takes a branch with no mask construction at all.
 
 Numeric contract (``flash_attention.cu:740-745``, ``:1008-1016``): masked
-logits take the finite ``neg_inf_approx`` value; ``exp(NEG - m)`` then
-underflows to exactly 0 for any row with a real max, so no second select
-is needed; rows whose final ``m`` never left the masking floor are zeroed
-(``O = 0, l = 0``) in the finalize step.
+logits take the finite ``neg_inf_approx`` value; ``exp2(NEG - m)`` then
+underflows to exactly 0 for any row with a real max; rows whose final
+``m`` never left the masking floor get ``O = 0, l = 0``.
 """
 
 from __future__ import annotations
@@ -36,211 +31,86 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..block_sizes import BlockConfig, LANE, VMEM_LIMIT, pad_to
+from ..block_sizes import BlockConfig, fit_block, pad_dim, pad_to
 from ..mask_rules import MaskRule
 from ..schedule import build_schedule
 from ..sync_modes import SyncPack
+from .backend import ROUTE, compiler_params, default_interpret
 from .kernel_common import (
-    INV_LOG2E, LOG2E, NEG_INF_F32, build_tile_mask, dot_precision,
+    INV_LOG2E, LOG2E, NEG_INF_F32, build_tile_mask, dot_nn, dot_nt,
 )
 
 __all__ = ["flash_forward"]
 
 
-#: lane layout of the packed softmax-stats tensor (B, q_pad, STATS_LANES):
-#: lane 0 = l (normaliser), lane 1 = m (row max); backward adds lane 2 = D.
-STATS_LANES = 8
-
-
 def _fwd_kernel(
-    *refs,
+    table_ref, counts_ref, needs_ref, q_ref, k_ref, v_ref,
+    o_ref, l_ref, m_ref,
+    *,
     pack: SyncPack,
     rule: MaskRule,
     q_len: int,
     k_len: int,
-    q_len_padded: int,
-    k_len_padded: int,
+    q_pad: int,
+    k_pad: int,
+    block_kv: int,
     num_steps: int,
     has_interior: bool,
     has_partial: bool,
-    kv_compute: int,
-    q_compute: int,
-    sub_skip: bool,
-    fast_softmax: bool,
-    delta_mask: bool = False,
 ):
-    if sub_skip:
-        (table_ref, counts_ref, needs_ref, sub_live_ref, sub_needs_ref,
-         q_ref, k_ref, v_ref, o_ref, stats_ref,
-         acc_ref, m_scratch, l_scratch) = refs
-    elif delta_mask:
-        # delta-mask layout: slots prefetch + resident mask tiles
-        # (schedule.delta_mask_table)
-        (table_ref, counts_ref, needs_ref, slots_ref,
-         q_ref, k_ref, v_ref, masks_ref, o_ref, stats_ref,
-         acc_ref, m_scratch, l_scratch) = refs
-    else:
-        (table_ref, counts_ref, needs_ref,
-         q_ref, k_ref, v_ref, o_ref, stats_ref,
-         acc_ref, m_scratch, l_scratch) = refs
-    qi = pl.program_id(1)
-    step = pl.program_id(2)
-    block_q = q_ref.shape[1]
-    block_kv = k_ref.shape[1]
-    rk = block_kv // kv_compute
+    qi = pl.program_id(0)
+    block_q = q_ref.shape[0]
+    row = qi * num_steps
+    # Q arrives pre-scaled by scale*log2(e), so q·kᵀ lands in the log2
+    # domain with no per-tile multiply.
+    q = q_ref[...]
+    q_pos = qi * block_q + jax.lax.broadcasted_iota(jnp.int32, (block_q, 1), 0)
 
-    @pl.when(step == 0)
-    def _init():
-        m_scratch[...] = jnp.full_like(m_scratch, NEG_INF_F32)
-        l_scratch[...] = jnp.zeros_like(l_scratch)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    def sub_body(jq: int, j: int, masked: bool):
-        """One (q_compute, kv_compute) sub-tile of the online softmax."""
-        qs = slice(jq * q_compute, (jq + 1) * q_compute)
-        sl = slice(j * kv_compute, (j + 1) * kv_compute)
-        # Q arrives pre-scaled by scale*log2(e) (one fused XLA pass
-        # over the (B, q, d) tensor), so the matmul lands directly in
-        # log2-domain logits — no per-(bq, bk)-tile VPU multiply.
-        s = jax.lax.dot_general(
-            q_ref[0, qs, :], k_ref[0, sl, :], (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=dot_precision(q_ref.dtype),
-        )
-        if masked and delta_mask:
-            # precomputed deduped tile mask: compare + select only
-            # (delta_mask implies no compute sub-tiling, so the sub-tile
-            # IS the whole block)
-            kb = table_ref[qi, step]
-            mask = masks_ref[slots_ref[qi, kb]] != 0
-            s = jnp.where(mask, s, NEG_INF_F32)
-        elif masked:
-            kb = table_ref[qi, step]
-            q_pos = qi * block_q + jq * q_compute + jax.lax.broadcasted_iota(
-                jnp.int32, (q_compute, 1), 0)
-            k_pos = kb * block_kv + j * kv_compute + jax.lax.broadcasted_iota(
-                jnp.int32, (1, kv_compute), 1)
-            mask = build_tile_mask(
-                pack, rule, q_pos, k_pos, q_len, k_len,
-                q_len_padded, k_len_padded,
-            )
+    def update(carry, kb, masked):
+        acc, m_prev, l_prev = carry
+        cols = pl.ds(pl.multiple_of(kb * block_kv, block_kv), block_kv)
+        s = dot_nt(q, k_ref[cols, :])
+        if masked:
+            k_pos = kb * block_kv + jax.lax.broadcasted_iota(
+                jnp.int32, (1, block_kv), 1)
+            mask = build_tile_mask(pack, rule, q_pos, k_pos, q_len, k_len,
+                                   q_pad, k_pad)
             if mask is not None:
                 s = jnp.where(mask, s, NEG_INF_F32)
-
-        m_prev = m_scratch[qs, :1]
-        l_prev = l_scratch[qs, :1]
-        m_curr = jnp.max(s, axis=1, keepdims=True)
-        m_next = jnp.maximum(m_prev, m_curr)
+        m_next = jnp.maximum(m_prev, jnp.max(s, axis=1))
         alpha = jnp.exp2(m_prev - m_next)
-        # Masked entries hold exactly NEG_INF_F32; for any row with
-        # a real max, exp2(NEG - m) underflows to 0, so no re-select
-        # is needed.  Fully-masked rows (m still NEG) are repaired
-        # in _finalize.
-        if fast_softmax:
-            # 16-bit inputs: the (s - m) shift and exp2 run at bf16
-            # VPU width and the PV matmul consumes p directly with
-            # no separate f32->bf16 cast pass.  s - m_next <= 0
-            # always, so exp2 <= 1 (no bf16 overflow); NEG_INF_F32
-            # is representable in bf16 and underflows exp2 to 0.
-            # Measured +18% on chip (tools/exp_vpu_attrib.py).
-            # Error vs an fp64 oracle: <= ~2^-7 max-relative on O
-            # (vs ~2^-8.5 for the exact-f32 chain on the same bf16
-            # inputs) — pinned by tests/test_fast_softmax.py; far
-            # inside the half tolerance model (1e-3 * k_len,
-            # test_base.py:205-226).  Opt out per call
-            # (fast_softmax=False) or globally (FA_FAST_SOFTMAX=0).
-            p = jnp.exp2((s - m_next).astype(jnp.bfloat16))
-            l_next = alpha * l_prev + jnp.sum(
-                p, axis=1, keepdims=True, dtype=jnp.float32)
-        else:
-            p = jnp.exp2(s - m_next)
-            l_next = alpha * l_prev + jnp.sum(p, axis=1, keepdims=True)
-        m_scratch[qs, :] = jnp.broadcast_to(
-            m_next, (q_compute, m_scratch.shape[1]))
-        l_scratch[qs, :] = jnp.broadcast_to(
-            l_next, (q_compute, l_scratch.shape[1]))
+        p = jnp.exp2(s - m_next[:, None])
+        l_next = alpha * l_prev + jnp.sum(p, axis=1)
+        v = v_ref[cols, :]
+        acc = acc * alpha[:, None] + dot_nn(p.astype(v.dtype), v)
+        return acc, m_next, l_next
 
-        pv = jax.lax.dot_general(
-            p.astype(v_ref.dtype), v_ref[0, sl, :],
-            (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-            precision=dot_precision(v_ref.dtype),
-        )
-        acc_ref[qs, :] = acc_ref[qs, :] * alpha + pv
+    def body(step, carry):
+        kb = table_ref[row + step]
+        if has_partial and has_interior:
+            return jax.lax.cond(
+                needs_ref[row + step] != 0,
+                lambda c: update(c, kb, True),
+                lambda c: update(c, kb, False),
+                carry)
+        return update(carry, kb, has_partial)
 
-    def update(masked: bool):
-        # Sub-tile loops.  kv sub-tiles form *dependent* chains (through the
-        # online merge) and are off by default; q sub-tiles are fully
-        # *independent* chains over disjoint scratch slices, giving the
-        # scheduler freedom to overlap one sub-block's matmul with
-        # another's VPU softmax.
-        for jq in range(block_q // q_compute):
-            for j in range(rk):
-                sub_body(jq, j, masked)
+    init = (jnp.zeros((block_q, o_ref.shape[1]), jnp.float32),
+            jnp.full((block_q,), NEG_INF_F32, jnp.float32),
+            jnp.zeros((block_q,), jnp.float32))
+    acc, m_i, l_i = jax.lax.fori_loop(0, counts_ref[qi], body, init)
 
-    def update_bitmask():
-        # Sub-tile-skip path for partially-visible tiles: the trace-time
-        # schedule provides per-sub-tile live/needs-mask bitmask words, so
-        # a masked-out (q_compute, kv_compute) sub-tile of a live tile is
-        # never scheduled on the MXU at all.  For a causal diagonal tile
-        # this deletes the ~half of the tile area above the diagonal that
-        # the dense-tile path pays as padding waste; interior sub-tiles of
-        # a partial tile also skip mask construction.
-        for jq in range(block_q // q_compute):
-            for j in range(rk):
-                bit = jq * rk + j
-                word_l = sub_live_ref[qi, step, bit // 32]
-                word_n = sub_needs_ref[qi, step, bit // 32]
-                live_b = ((word_l >> (bit % 32)) & 1) != 0
-                needs_b = ((word_n >> (bit % 32)) & 1) != 0
-
-                @pl.when(live_b & needs_b)
-                def _masked_sub(jq=jq, j=j):
-                    sub_body(jq, j, True)
-
-                @pl.when(live_b & jnp.logical_not(needs_b))
-                def _interior_sub(jq=jq, j=j):
-                    sub_body(jq, j, False)
-
-    in_bounds = step < counts_ref[qi]
-    if has_partial and has_interior:
-        needs = needs_ref[qi, step] == 1
-
-        @pl.when(in_bounds & needs)
-        def _masked():
-            update_bitmask() if sub_skip else update(True)
-
-        @pl.when(in_bounds & jnp.logical_not(needs))
-        def _interior():
-            update(False)
-    else:
-        @pl.when(in_bounds)
-        def _only():
-            if has_partial and sub_skip:
-                update_bitmask()
-            else:
-                update(has_partial)
-
-    @pl.when(step == num_steps - 1)
-    def _finalize():
-        l_col = l_scratch[:, :1]
-        m_col = m_scratch[:, :1]
-        # Rows that never saw an unmasked entry: O = 0, l = 0,
-        # m = neg-inf approx (flash_attention.cu:1008-1016).
-        dead = m_col <= NEG_INF_F32
-        l_col = jnp.where(dead, 0.0, l_col)
-        l_safe = jnp.where(l_col == 0.0, 1.0, l_col)
-        o = acc_ref[...] / l_safe
-        o = jnp.where(dead, 0.0, o)
-        o_ref[0] = o.astype(o_ref.dtype)
-        # public m is in the natural-log domain
-        m_pub = jnp.where(dead, NEG_INF_F32, m_col * jnp.float32(INV_LOG2E))
-        block_q = acc_ref.shape[0]
-        stats_ref[0] = jnp.concatenate(
-            [l_col, m_pub, jnp.zeros((block_q, STATS_LANES - 2), jnp.float32)],
-            axis=1,
-        )
+    # Rows that never saw an unmasked entry: O = 0, l = 0, m = the masking
+    # floor (flash_attention.cu:1008-1016).
+    dead = m_i <= NEG_INF_F32
+    l_i = jnp.where(dead, 0.0, l_i)
+    l_safe = jnp.where(l_i == 0.0, 1.0, l_i)
+    o = jnp.where(dead[:, None], 0.0, acc / l_safe[:, None])
+    o_ref[...] = o.astype(o_ref.dtype)
+    l_ref[...] = l_i
+    # the public m is in the natural-log domain
+    m_ref[...] = jnp.where(dead, NEG_INF_F32, m_i * jnp.float32(INV_LOG2E))
 
 
 def flash_forward(
@@ -252,313 +122,87 @@ def flash_forward(
     rule: MaskRule,
     config: BlockConfig,
     scale: Optional[float] = None,
-    interpret: bool = False,
-    fast_softmax: Optional[bool] = None,
+    interpret: Optional[bool] = None,
 ):
     """Run the forward kernel on sequence-major tensors.
 
     Args:
-      q: ``(B, q_len, d)``; k: ``(B, k_len, d)``; v: ``(B, k_len, v_d)``
-        where ``B`` is the flattened batch (incl. heads) and the sequence
-        axes are the row-major-flattened 1d/2d sequences of ``pack``.
+      q: ``(B, q_len, d)``; k: ``(B_kv, k_len, d)``; v: ``(B_kv, k_len, v_d)``
+        where ``B`` is the flattened batch (incl. heads), a multiple of
+        ``B_kv`` (grouped-query attention), and the sequence axes are the
+        row-major-flattened 1d/2d sequences of ``pack``.
 
     Returns ``(o, l, m)``: ``o: (B, q_len, v_d)``, ``l, m: (B, q_len)`` in
     float32 (the public API layer casts to the reference's output dtypes).
     """
+    if interpret is None:
+        interpret = default_interpret()
     in_dtype = q.dtype
-    if (in_dtype == jnp.float16 and not interpret) or jnp.dtype(in_dtype).itemsize == 1:
-        # Mosaic has no native f16 (or fp8 — v5e) MXU path; bf16 is the TPU
-        # half type.  Compute in bf16 and cast back — well inside the
-        # reference's half-precision tolerance model (1e-3·k_len,
-        # test_base.py:205-226).
+    if jnp.dtype(in_dtype).itemsize == 1:
+        # fp8 inputs are computed in bf16 for now; native fp8 tensor-core
+        # compute with scales is open work.
         o, l, m = flash_forward(
             q.astype(jnp.bfloat16), k.astype(jnp.bfloat16),
             v.astype(jnp.bfloat16), pack=pack, rule=rule, config=config,
-            scale=scale, interpret=interpret, fast_softmax=fast_softmax)
+            scale=scale, interpret=interpret)
         return o.astype(in_dtype), l, m
     B, q_len, d = q.shape
     B_kv, k_len, v_d = v.shape
-    # Grouped-query attention: when K/V carry fewer (batch·head) rows than
-    # Q, each KV row serves a contiguous group of g query rows via the
-    # BlockSpec index map (b -> b // g) — no jnp.repeat materialisation,
-    # no duplicated HBM footprint (the decode kernel's grouping scheme,
-    # serving/decode.py, applied to the training path).
+    # Grouped-query attention: each KV row serves a contiguous group of g
+    # query rows through the index map (b -> b // g), with no repeat of
+    # K/V in memory.
     if B % B_kv:
         raise ValueError(f"q batch {B} not a multiple of kv batch {B_kv}")
     g = B // B_kv
     if scale is None:
         scale = 1.0 / np.sqrt(d)
 
-    block_q = min(config.block_q, pad_to(q_len, LANE))
-    block_kv = min(config.block_kv, pad_to(k_len, LANE))
+    block_q = fit_block(config.block_q, q_len)
+    block_kv = fit_block(config.block_kv, k_len)
     q_pad = pad_to(q_len, block_q)
     k_pad = pad_to(k_len, block_kv)
-    d_pad = pad_to(d, LANE)
-    v_d_pad = pad_to(v_d, LANE)
+    d_pad = pad_dim(d)
+    v_d_pad = pad_dim(v_d)
 
-    # Fold scale and the log2(e) domain change into Q itself: one fused XLA
-    # elementwise pass over the smallest tensor involved, replacing a
-    # per-(bq, bk)-logit-tile VPU multiply inside the kernel's hot loop.
-    # (The reference scales logits post-matmul per tile,
-    # flash_attention.cu:915-947.)
+    # Fold scale and the log2(e) domain change into Q: one fused XLA pass
+    # over the smallest operand instead of a multiply per scores tile.
     q_scaled = (q.astype(jnp.float32) * jnp.float32(scale * LOG2E)).astype(in_dtype)
     qp = jnp.pad(q_scaled, ((0, 0), (0, q_pad - q_len), (0, d_pad - d)))
     kp = jnp.pad(k, ((0, 0), (0, k_pad - k_len), (0, d_pad - d)))
     vp = jnp.pad(v, ((0, 0), (0, k_pad - k_len), (0, v_d_pad - v_d)))
 
-    kv_compute = min(config.block_kv_compute or block_kv, block_kv)
-    q_compute = min(config.block_q_compute or block_q, block_q)
-    sched = build_schedule(pack, rule, block_q, block_kv,
-                           q_compute=q_compute, kv_compute=kv_compute)
-    num_steps = sched.num_steps
-    # Sub-tile skipping is opt-in (FA_SUBSKIP=1): it prunes masked-out
-    # sub-tiles of live tiles via per-sub-tile pl.when bitmasks, but the
-    # branches measured 2-3x SLOWER on v5e (docs/TUNING.md round 4) —
-    # compute sub-tiling without the flag keeps its original
-    # pipeline-overlap semantics.
-    import os as _os
-    sub_skip = (sched.sub_live is not None and bool(sched.partial.any())
-                and _os.environ.get("FA_SUBSKIP") == "1")
-
-    import os
-
-    # Precomputed deduped tile masks (schedule.delta_mask_table): when the
-    # partial tiles' mask patterns repeat (translation-structured rules —
-    # causal diagonals, local bands, 2d windows), in-kernel mask
-    # construction (~9 VPU ops/element) collapses to a resident-mask
-    # select (2 ops/element).  FA_DELTA_MASK=0 opts out.
-    delta = None
-    if (not rule.is_full and bool(sched.partial.any()) and not sub_skip
-            and kv_compute == block_kv and q_compute == block_q
-            and os.environ.get("FA_DELTA_MASK", "1") != "0"):
-        from ..schedule import delta_mask_table
-        delta = delta_mask_table(pack, rule, block_q, block_kv,
-                                 q_len, k_len, q_pad, k_pad)
-
-    if fast_softmax is None:
-        # Auto policy: bf16 softmax for 16-bit inputs (error ~2^-7 max-rel
-        # vs fp64, tests/test_fast_softmax.py — inside the reference half
-        # tolerance model); exact f32 otherwise.  FA_FAST_SOFTMAX=0
-        # disables the fast chain globally (escape hatch).
-        fast_softmax = (jnp.dtype(in_dtype).itemsize == 2
-                        and os.environ.get("FA_FAST_SOFTMAX", "1") != "0")
-
-    # Single-window fast path (ops/forward_banded.py window_forward,
-    # round 5): for narrow-band rules (2d/1d local windows) whose live kv
-    # set per q block is one contiguous 128-granular band, the whole band
-    # runs as ONE dynamic-start matmul pair — no online-merge chain, no
-    # block_kv-granularity scheduling waste (the measured 3x cost of the
-    # 2d local cases, VERDICT r4 item 3).  window_band_table prices the
-    # fixed window against the 128x128 fine schedule and refuses wide-
-    # variance bands (1d causal), which keep the banded/table kernels.
-    from .forward_banded import (
-        RESIDENT_KV_BUDGET, banded_forward, window_forward)
-    resident_ok = (
-        k_pad * (d_pad + v_d_pad) * jnp.dtype(in_dtype).itemsize
-        <= RESIDENT_KV_BUDGET
-    )
-    # An explicit compute sub-tiling request (q_compute/kv_compute finer
-    # than the blocks) selects the table kernel — the only one that
-    # implements sub-chained compute.  Measured use: (2048,2048) qc512
-    # is the best degraded-state S=64k causal config (docs/TUNING.md
-    # round 5); default configs leave compute = None and route normally.
-    explicit_sub = (q_compute != block_q) or (kv_compute != block_kv)
-
-    if (not sub_skip and not explicit_sub and resident_ok
-            and os.environ.get("FA_WINDOW", "1") != "0"):
-        from ..schedule import window_band_table
-        # Sub-block choice: smaller sub_q sees a narrower band (less
-        # scheduled area), the grid block amortises per-step overhead
-        # and interleaves independent sub-chains.  Take the largest
-        # sub_q within 30% of the minimum area — measured on chip
-        # (tools/exp_window_sweep.py round 5): sub 256 beats sub 128 on
-        # the 2d w=8 case (85.8 vs 74.1 TFLOP/s-128) despite 20% more
-        # scheduled area, because wider sub-tiles keep the MXU busy;
-        # sub 512's 2x area is a loss.
-        cands = []
-        for sq in (512, 256, 128):
-            if sq > block_q or block_q % sq:
-                continue
-            wt_c = window_band_table(pack, rule, sq, q_len, k_len,
-                                     q_pad, k_pad)
-            if wt_c is not None:
-                cands.append((sq, wt_c, q_pad * wt_c[1]))
-        wt = None
-        if cands:
-            amin = min(a for _, _, a in cands)
-            sub_q, wt, _ = next(c for c in cands if c[2] <= 1.30 * amin)
-        if wt is not None:
-            starts, W, slots, masks = wt
-            grid_bq = block_q
-            while grid_bq > sub_q and grid_bq * W * 4 > 8 << 20:
-                grid_bq //= 2  # unrolled scores tiles must fit VMEM
-            cost = pl.CostEstimate(
-                flops=2 * q_pad * W * (d_pad + v_d_pad) * B,
-                bytes_accessed=int(qp.nbytes + kp.nbytes + vp.nbytes
-                                   + B * q_pad * v_d_pad * qp.dtype.itemsize),
-                transcendentals=q_pad * W * B,
-            )
-            o, stats = window_forward(
-                qp, kp, vp, starts, W, slots, masks,
-                block_q=grid_bq, sub_q=sub_q,
-                fast_softmax=bool(fast_softmax),
-                cost=cost, interpret=interpret,
-            )
-            return (
-                o[:, :q_len, :v_d],
-                stats[:, :q_len, 0],
-                stats[:, :q_len, 1],
-            )
-
-    # Banded resident-KV fast path (ops/forward_banded.py): engaged when
-    # every schedule row is one contiguous band with one interior run and
-    # the K/V rows fit the resident VMEM budget.  Measured faster than the
-    # table-driven grid kernel (fewer K/V DMAs, no per-tile grid
-    # bookkeeping); the table kernel remains the spec and covers
-    # strided-local schedules and very long sequences.
-    use_banded = (
-        not sub_skip
-        and not explicit_sub
-        and os.environ.get("FA_BANDED", "1") != "0"
-        and resident_ok
-    )
-    if use_banded:
-        seg = sched.banded_segments()
-        if seg is not None:
-            n_live = int(sched.live.sum())
-            cost = pl.CostEstimate(
-                flops=2 * block_q * block_kv * (d_pad + v_d_pad) * n_live * B,
-                bytes_accessed=int(qp.nbytes + kp.nbytes + vp.nbytes
-                                   + B * q_pad * v_d_pad * qp.dtype.itemsize),
-                transcendentals=block_q * block_kv * n_live * B,
-            )
-            # Experimental (FA_RESIDENT=1): fully-resident rows — grid
-            # over batch only, one contiguous DMA per operand per row
-            # (the shape that dodges the degraded-state DMA penalty).
-            item = jnp.dtype(in_dtype).itemsize
-            resident_bytes = ((q_pad + k_pad) * (d_pad + v_d_pad) * item
-                              + block_q * block_kv * 4)
-            if (os.environ.get("FA_RESIDENT") == "1"
-                    and resident_bytes <= 48 << 20):
-                from .forward_banded import resident_forward
-                o, stats = resident_forward(
-                    qp, kp, vp, seg, pack=pack, rule=rule,
-                    q_len=q_len, k_len=k_len,
-                    block_q=block_q, block_kv=block_kv,
-                    fast_softmax=bool(fast_softmax), cost=cost,
-                    interpret=interpret, delta=delta,
-                )
-                return (
-                    o[:, :q_len, :v_d],
-                    stats[:, :q_len, 0],
-                    stats[:, :q_len, 1],
-                )
-            o, stats = banded_forward(
-                qp, kp, vp, seg, pack=pack, rule=rule,
-                q_len=q_len, k_len=k_len,
-                block_q=block_q, block_kv=block_kv,
-                fast_softmax=bool(fast_softmax), cost=cost,
-                interpret=interpret, delta=delta,
-            )
-            return (
-                o[:, :q_len, :v_d],
-                stats[:, :q_len, 0],
-                stats[:, :q_len, 1],
-            )
-
+    sched = build_schedule(pack, rule, block_q, block_kv)
     kernel = functools.partial(
-        _fwd_kernel,
-        pack=pack,
-        rule=rule,
-        q_len=q_len,
-        k_len=k_len,
-        q_len_padded=q_pad,
-        k_len_padded=k_pad,
-        num_steps=num_steps,
+        _fwd_kernel, pack=pack, rule=rule, q_len=q_len, k_len=k_len,
+        q_pad=q_pad, k_pad=k_pad, block_kv=block_kv,
+        num_steps=sched.num_steps,
         has_interior=bool((sched.live & ~sched.partial).any()),
         has_partial=bool(sched.partial.any()),
-        kv_compute=kv_compute,
-        q_compute=q_compute,
-        sub_skip=sub_skip,
-        fast_softmax=bool(fast_softmax),
-        delta_mask=delta is not None,
     )
-
-    grid = (B, sched.num_q_blocks, num_steps)
-    out_shapes = (
-        jax.ShapeDtypeStruct((B, q_pad, v_d_pad), in_dtype),
-        jax.ShapeDtypeStruct((B, q_pad, STATS_LANES), jnp.float32),
-    )
-    # Index maps take the scalar-prefetch refs as trailing args; *p keeps
-    # them arity-agnostic across the 3-, 4- (delta-mask) and 5-ref
-    # (sub-tile skip) layouts.
-    qi_map = lambda b, qi, s, *p: (b, qi, 0)
-    kv_map = lambda b, qi, s, *p: (b // g, p[0][qi, s], 0)
-    in_specs = [
-        pl.BlockSpec((1, block_q, d_pad), qi_map),
-        pl.BlockSpec((1, block_kv, d_pad), kv_map),
-        pl.BlockSpec((1, block_kv, v_d_pad), kv_map),
-    ]
-    if delta is not None:
-        in_specs.append(pl.BlockSpec(
-            (delta[1].shape[0], block_q, block_kv),
-            lambda b, qi, s, *p: (0, 0, 0)))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=(5 if sub_skip else
-                             4 if delta is not None else 3),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((1, block_q, v_d_pad), qi_map),
-            pl.BlockSpec((1, block_q, STATS_LANES), qi_map),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((block_q, v_d_pad), jnp.float32),
-            pltpu.VMEM((block_q, LANE), jnp.float32),
-            pltpu.VMEM((block_q, LANE), jnp.float32),
-        ],
-    )
-
-    # Skip-aware analytic cost fed to the compiler's scheduler — the TPU
-    # analog of the reference's OpStats("flops") registration
-    # (flash_attention.py:499-562): the model that priced the op for TF's
-    # grappler here informs XLA's scheduling of the custom call.
-    if sub_skip:
-        # Sub-tile skipping prunes scheduled area below tile granularity.
-        n_live = int(sched.fine_live.sum())
-        area = q_compute * kv_compute
-    else:
-        n_live = int(sched.live.sum())
-        area = block_q * block_kv
-    cost = pl.CostEstimate(
-        flops=2 * area * (d_pad + v_d_pad) * n_live * B,
-        bytes_accessed=int(qp.nbytes + kp.nbytes + vp.nbytes
-                           + B * q_pad * v_d_pad * qp.dtype.itemsize),
-        transcendentals=area * n_live * B,
-    )
-
-    prefetch = [jnp.asarray(sched.kv_table), jnp.asarray(sched.kv_counts),
-                jnp.asarray(sched.needs_mask)]
-    inputs = [qp, kp, vp]
-    if sub_skip:
-        prefetch += [jnp.asarray(sched.sub_live), jnp.asarray(sched.sub_needs)]
-    elif delta is not None:
-        prefetch.append(jnp.asarray(delta[0]))
-        inputs.append(jnp.asarray(delta[1]))
-    o, stats = pl.pallas_call(
+    whole = pl.BlockSpec()
+    o, l, m = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=VMEM_LIMIT,
-        ),
-        cost_estimate=cost,
+        grid=(sched.num_q_blocks, B),
+        in_specs=[
+            whole, whole, whole,
+            pl.BlockSpec((None, block_q, d_pad), lambda qi, b: (b, qi, 0)),
+            pl.BlockSpec((None, k_pad, d_pad), lambda qi, b: (b // g, 0, 0)),
+            pl.BlockSpec((None, k_pad, v_d_pad), lambda qi, b: (b // g, 0, 0)),
+        ],
+        out_specs=[
+            pl.BlockSpec((None, block_q, v_d_pad), lambda qi, b: (b, qi, 0)),
+            pl.BlockSpec((None, block_q), lambda qi, b: (b, qi)),
+            pl.BlockSpec((None, block_q), lambda qi, b: (b, qi)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((B, q_pad, v_d_pad), in_dtype),
+            jax.ShapeDtypeStruct((B, q_pad), jnp.float32),
+            jax.ShapeDtypeStruct((B, q_pad), jnp.float32),
+        ],
+        backend=ROUTE,
+        compiler_params=compiler_params(config.num_warps, config.num_stages),
         interpret=interpret,
-    )(*prefetch, *inputs)
-
-    return (
-        o[:, :q_len, :v_d],
-        stats[:, :q_len, 0],
-        stats[:, :q_len, 1],
-    )
+        name="fa_forward",
+    )(jnp.asarray(sched.kv_table.reshape(-1)), jnp.asarray(sched.kv_counts),
+      jnp.asarray(sched.needs_mask.reshape(-1)), qp, kp, vp)
+    return o[:, :q_len, :v_d], l[:, :q_len], m[:, :q_len]

@@ -3,8 +3,8 @@
 The mask expression built here is the in-kernel twin of the NumPy rule
 evaluation in ``reference.build_mask``: per-dimension order coordinates are
 derived from global row/column positions with shift/mask arithmetic on the
-power-of-two reference shape (the VPU analog of the reference's coordinate
-codec, ``flash_attention.h:11-41``) and fed to ``MaskRule.check``.
+power-of-two reference shape (the reference's coordinate codec,
+``flash_attention.h:11-41``) and fed to ``MaskRule.check``.
 """
 
 from __future__ import annotations
@@ -18,31 +18,52 @@ import jax.numpy as jnp
 from ..mask_rules import MaskRule
 from ..sync_modes import SeqDescriptor, SyncPack, ref_log2
 
-__all__ = ["kernel_orders", "build_tile_mask", "dot_precision", "NEG_INF_F32",
-           "LOG2E", "INV_LOG2E"]
+__all__ = ["kernel_orders", "build_tile_mask", "dot_precision", "dot_nt",
+           "dot_nn", "dot_tn", "NEG_INF_F32", "LOG2E", "INV_LOG2E"]
 
 from ..utils.dtypes import MASK_VALUE_F32 as NEG_INF_F32
 
 #: The kernels run the online softmax in the log2 domain:
-#: ``p = exp2(s·(scale·log2e) − m₂)``.  On the VPU ``exp`` is ``exp2`` plus a
-#: hidden multiply by log2(e); folding that constant into the (already
-#: required) scale multiply removes one full pass over the scores tile.
+#: ``p = exp2(s·(scale·log2e) − m₂)``.  ``exp`` is ``exp2`` plus a hidden
+#: multiply by log2(e); folding that constant into the (already required)
+#: scale multiply removes one full pass over the scores tile.
 #: Public ``m`` outputs are converted back to the natural-log domain.
 LOG2E = float(math.log2(math.e))
 INV_LOG2E = 1.0 / LOG2E
 
 
 def dot_precision(dtype):
-    """MXU precision for a matmul with ``dtype`` operands.
+    """Matmul precision for ``dtype`` operands.
 
-    fp32 operands need ``HIGHEST`` (6-pass bf16 decomposition) to meet the
-    reference's fp32 tolerance model (``test_base.py:205-226``); half
-    dtypes run natively on the MXU, where a float32 contract-precision
-    request is invalid (Mosaic rejects it).
+    fp32 operands need ``HIGHEST``, which Triton lowers to IEEE fp32 (no
+    TF32), to meet the reference's fp32 tolerance model of 1e-6·k_len
+    (``test_base.py:205-226``); half dtypes run natively on the tensor
+    cores with fp32 accumulation.
     """
     if jnp.dtype(dtype) == jnp.float32:
         return jax.lax.Precision.HIGHEST
     return None
+
+
+def _dot(a, b, contract):
+    return jax.lax.dot_general(
+        a, b, (contract, ((), ())), preferred_element_type=jnp.float32,
+        precision=dot_precision(a.dtype))
+
+
+def dot_nt(a, b):
+    """``a @ b.T`` with fp32 accumulation."""
+    return _dot(a, b, ((1,), (1,)))
+
+
+def dot_nn(a, b):
+    """``a @ b`` with fp32 accumulation."""
+    return _dot(a, b, ((1,), (0,)))
+
+
+def dot_tn(a, b):
+    """``a.T @ b`` with fp32 accumulation."""
+    return _dot(a, b, ((0,), (0,)))
 
 
 def kernel_orders(desc: SeqDescriptor, logs: Tuple[int, ...], pos):
@@ -51,8 +72,8 @@ def kernel_orders(desc: SeqDescriptor, logs: Tuple[int, ...], pos):
     ``pos`` is a (broadcastable) int32 array of row-major flattened sequence
     positions; returns ``(coords, flat)`` where ``coords`` is a list of
     per-dimension order-coordinate arrays.  All arithmetic is static-shape
-    int32 (divisions are by trace-time constants, so XLA lowers them to
-    multiply/shift sequences).
+    int32.  Positions are non-negative, so truncating ``lax.div``/``lax.rem``
+    by trace-time constants equal floor division and need no sign fix-up.
     """
     ndim = len(desc.shape)
     shifts = [sum(logs[d + 1:]) for d in range(ndim)]
@@ -60,7 +81,7 @@ def kernel_orders(desc: SeqDescriptor, logs: Tuple[int, ...], pos):
     rem = pos
     for d in range(ndim):
         inner = math.prod(desc.shape[d + 1:])
-        idx_d = rem // inner if inner > 1 else rem
+        idx_d = jax.lax.div(rem, jnp.int32(inner)) if inner > 1 else rem
         if d + 1 < ndim:
             rem = rem - idx_d * inner
         c = idx_d * desc.stride[d] + desc.offset[d]

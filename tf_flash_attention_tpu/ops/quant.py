@@ -55,9 +55,9 @@ def quantize_weight_int8(w: jax.Array) -> QuantizedTensor:
 def int8_matmul(x: jax.Array, qw: QuantizedTensor) -> jax.Array:
     """``x @ dequant(qw)`` with the dequant folded after the int matmul.
 
-    ``x`` is quantized per-row on the fly; the MXU runs an int8 x int8
-    matmul with int32 accumulation (2x bf16 throughput on v5e), and both
-    scales are applied to the int32 result.
+    ``x`` is quantized per-row on the fly; XLA runs an int8 x int8 matmul
+    with int32 accumulation (the tensor cores' int8 path on the GPU), and
+    both scales are applied to the int32 result.
     """
     qx = quantize_int8(x, axis=-1)
     acc = jax.lax.dot_general(

@@ -1,10 +1,11 @@
 """Device-mesh helpers.
 
 The reference is a single-GPU op library with zero multi-device code
-(SURVEY.md §2: no NCCL/MPI, no tf.distribute).  The TPU build's scaling
-story is mesh-first: all parallelism (data / head-tensor / context /
-sequence) is expressed as named mesh axes + sharding specs, and XLA lowers
-the named collectives onto ICI within a slice and DCN across slices.
+(SURVEY.md §2: no NCCL/MPI, no tf.distribute).  Here all parallelism
+(data / head-tensor / context / sequence) is expressed as named mesh axes
++ sharding specs, and XLA lowers the named collectives to NCCL.  The
+cards of one host are joined all to all by NVLink, so a mesh's shape
+follows the algorithm, not a physical topology.
 """
 
 from __future__ import annotations
@@ -25,16 +26,16 @@ AXIS_CONTEXT = "context"
 def maybe_init_distributed() -> bool:
     """Initialise ``jax.distributed`` when running multi-host.
 
-    Call once at program start on every host of a pod slice (before any
-    device use); after it, ``jax.devices()`` spans all hosts and the same
-    mesh/sharding code runs unchanged — ICI within a slice, DCN across
-    slices.  No-ops (returns False) when no coordinator is configured.
+    Call once at program start on every host (before any device use);
+    after it, ``jax.devices()`` spans all hosts and the same mesh/sharding
+    code runs unchanged.  No-ops (returns False) when no coordinator is
+    configured in ``COORDINATOR_ADDRESS``.
     """
     import os
 
     if jax.process_count() > 1:
         return True  # already initialised
-    if os.environ.get("COORDINATOR_ADDRESS") or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"):
+    if os.environ.get("COORDINATOR_ADDRESS"):
         jax.distributed.initialize()
         return True
     return False

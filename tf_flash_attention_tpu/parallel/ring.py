@@ -1,10 +1,10 @@
-"""Ring attention: context parallelism over ICI, forward and backward.
+"""Ring attention: context parallelism, forward and backward.
 
 Sequence/context parallelism for sequences beyond one chip's HBM — a
-first-class TPU component with no reference counterpart (the reference
+component with no reference counterpart (the reference
 scales sequence length only by tiling + block skipping on one GPU,
 SURVEY.md §5).  KV shards rotate around the ``context`` mesh axis via
-``jax.lax.ppermute`` (point-to-point on the ICI ring) while every chip
+``jax.lax.ppermute`` (point-to-point, which XLA hands to NCCL) while every chip
 runs the local Pallas flash kernel on the shard currently in front of it;
 XLA's latency-hiding scheduler overlaps the permute with the compute.
 
@@ -52,12 +52,13 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..block_sizes import BlockConfig, LANE, choose_block_config, pad_to
+from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import CausalRule, FullRule
 from ..ops.backward import flash_backward
 from ..ops.forward import flash_forward
 from ..sync_modes import make_sync_pack
 from ..utils.dtypes import MASK_VALUE_F32
+from ..ops.backend import default_interpret
 from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL
 
 __all__ = ["ring_attention_local", "ring_flash_attention"]
@@ -403,7 +404,7 @@ def ring_attention_local(
     if int(_np.prod(seq_shape)) != s:
         raise ValueError(f"seq_shape {seq_shape} does not flatten to {s}")
     if block_config is None:
-        block_config = choose_block_config(s, s, pad_to(d, LANE), pad_to(d, LANE), q.dtype)
+        block_config = choose_block_config(s, s, d, d, q.dtype)
     local_rule = None
     if rule is not None:
         if isinstance(rule, _Local):
@@ -446,7 +447,7 @@ def ring_flash_attention(
     axis size).  Differentiable end to end.
     """
     if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
+        interpret = default_interpret()
     axis_size = int(mesh.shape[context_axis])
     local_seq_shape = None
     if seq_shape is not None:

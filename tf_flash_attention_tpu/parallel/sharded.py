@@ -21,10 +21,11 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..block_sizes import BlockConfig, LANE, choose_block_config, pad_to
+from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import MaskRule
 from ..ops.attend import AttendParams, attend
 from ..sync_modes import make_sync_pack
+from ..ops.backend import default_interpret
 from .mesh import AXIS_DATA, AXIS_MODEL
 
 __all__ = ["mha", "sharded_flash_attention"]
@@ -55,15 +56,13 @@ def mha(
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
+        interpret = default_interpret()
     if block_config is None:
-        block_config = choose_block_config(
-            sq, skv, pad_to(d, LANE), pad_to(d, LANE), q.dtype,
-            kv_group=hq // hkv)
+        block_config = choose_block_config(sq, skv, d, d, q.dtype)
     # GQA runs natively in the kernels: with heads minor in the flattened
     # batch, query row b·hq + h maps to KV row (b·hq + h) // (hq/hkv)
     # = b·hkv + h//(hq/hkv) via the kernel's BlockSpec index map — no
-    # jnp.repeat materialisation, no duplicated KV HBM footprint.
+    # jnp.repeat materialisation, no duplicated KV footprint.
     pack = make_sync_pack(sync_mode, (sq,), (skv,))
     qf = q.reshape(b * hq, sq, d)
     kf = k.reshape(b * hkv, skv, d)

@@ -1,10 +1,10 @@
 """Ulysses sequence parallelism: all-to-all head<->sequence resharding.
 
 The second context-parallel strategy next to ring attention
-(``parallel/ring.py``) — a first-class TPU component with no reference
+(``parallel/ring.py``) — a component with no reference
 counterpart (the reference is single-GPU, SURVEY.md §2).  Inputs arrive
 sequence-sharded over the ``context`` mesh axis; one tiled
-``jax.lax.all_to_all`` on the ICI converts them to *head*-sharded tensors
+``jax.lax.all_to_all`` converts them to *head*-sharded tensors
 holding the **full** sequence, every chip runs the local Pallas flash
 kernel on its head group, and a second all-to-all converts the output
 back to sequence sharding:
@@ -15,7 +15,7 @@ back to sequence sharding:
 
 Trade-offs vs the ring (why both exist):
 
-* Ulysses moves activations twice over ICI but runs attention on the full
+* Ulysses moves activations twice between devices but runs attention on the full
   sequence locally, so **every mask rule × sync mode combination works
   unchanged** — including the strided-local and cross-resolution
   ``scale_front``/``scale_end`` modes whose non-contiguous order maps do
@@ -47,10 +47,11 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..block_sizes import BlockConfig, LANE, choose_block_config, pad_to
+from ..block_sizes import BlockConfig, choose_block_config
 from ..mask_rules import MaskRule
 from ..ops.attend import AttendParams, attend
 from ..sync_modes import make_sync_pack
+from ..ops.backend import default_interpret
 from .mesh import AXIS_CONTEXT, AXIS_DATA, AXIS_MODEL
 
 __all__ = ["ulysses_attention_local", "ulysses_flash_attention"]
@@ -110,8 +111,7 @@ def ulysses_attention_local(
     # GQA runs natively in the kernels via the flattened-batch group index
     # map (see parallel/sharded.mha) — no jnp.repeat materialisation.
     if block_config is None:
-        block_config = choose_block_config(
-            sq, skv, pad_to(d, LANE), pad_to(d, LANE), q.dtype)
+        block_config = choose_block_config(sq, skv, d, d, q.dtype)
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     params = AttendParams(
@@ -157,7 +157,7 @@ def ulysses_flash_attention(
     context axis size.  Differentiable end to end.
     """
     if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
+        interpret = default_interpret()
     cp = int(mesh.shape[context_axis])
     spec = P(data_axis, model_axis, context_axis, None)
 

@@ -1,56 +1,34 @@
-"""Paged decode attention kernel (q_len = 1, INT8/FP8/INT4 KV, GQA).
+"""Paged decode attention (q_len = 1, INT8/FP8/INT4/bf16 KV, GQA).
 
-The serving-path kernel from the BASELINE north star: one new query token
-per sequence attends to its paged (optionally quantized) KV cache.  Design
-points:
+The served path's per-token cost: one new query token per sequence
+attends to its paged, optionally quantized KV cache.  Decode reads every
+live KV byte once and does little arithmetic on it, so it is bound by
+device-memory bandwidth; the kernel's job is to read the cache in its
+stored bytes and nothing else.
 
-* the page table is a **scalar-prefetch argument and the kv ``BlockSpec``
-  index maps read it**, so non-contiguous pages stream through the normal
-  Pallas input pipeline with automatic double buffering — no hand-rolled
-  DMA machinery (the same trace-time-table trick the training kernels use
-  for block skipping);
-* one grid step covers **all KV heads of one page** (an unrolled in-kernel
-  head loop): per-step work is ~1 MB of DMA + a few small matmuls, so the
-  fixed per-step cost amortises — decode throughput is grid-overhead
-  sensitive, not MXU-bound;
-* steps past a sequence's page count re-map to its last page — consecutive
-  identical block indices are not re-fetched, so dead steps cost no
-  bandwidth — and their compute is predicated off;
-* quantized payloads are dequantized per page inside the kernel, halving
-  decode HBM traffic, which is the binding resource (decode is
-  bandwidth-bound).  Dequantization is *post-scaled*: the (page, d) tiles
-  are only cast (``int8/fp8 -> bf16``); the per-token scales — stored
-  token-minor, one contiguous lane-major row per page — are applied to
-  the small (group, page) score/probability tiles instead (K scales fold
-  into the logits scale multiply, V scales into the probabilities before
-  the PV matmul).  Applying scales to the big tiles, or storing them
-  token-major (one-lane-wide DMAs), each measured ~4x slower end-to-end;
-* GQA: queries are grouped per KV head, one ``(group, d) @ (d, page)``
-  matmul per head per page.
+* ``paged_decode_attention`` — the Triton kernel.  One program owns one
+  (sequence, kv head).  It reads its row of the page table, its page
+  count and its first live page, and loops over the live pages in tiles
+  of ``block_rows`` tokens, carrying the fp32 online-softmax state in
+  registers.  Pages below a ``LocalRule`` window are skipped before any
+  load.  Quantized pages are dequantized in registers and *post-scaled*:
+  the (rows, d) payload tile is only cast to bf16, and the per-token
+  scales multiply the small (group, rows) score and probability tiles
+  (K scales into the logits, V scales into the probabilities before the
+  PV product).  INT4 pages (two tokens per byte, ``kv_cache.py``) are
+  sign-extended with shifts and attended as even/odd half-tiles under one
+  online softmax.  GQA: the ``g`` query heads of a KV head are the rows of
+  one (g, d) @ (d, rows) product.
+* ``paged_multitoken_decode`` — speculative verification (``gamma`` query
+  rows per slot), off the default path: plain XLA over the gathered,
+  dequantized pages (``paged_attention_xla``).
+* ``paged_attention_xla`` — the plain version of both: gather the live
+  pages into new arrays, dequantize, run masked attention with an fp32
+  softmax.  It is the reference the kernel is checked and timed against.
 
-* INT4 KV (nibble-packed int8 bytes, two tokens per byte row) halves the
-  page bytes again; the kernel sign-extends the nibbles with int32 shifts
-  and attends to the even/odd token halves as two half-page key sets under
-  one online softmax.  The unpack is VPU work proportional to the bytes
-  streamed, so it only wins once per-step fixed costs are amortised:
-  **use page_size >= 512 with int4** (measured on v5e at B=16, ctx=8k:
-  page 256 int4 is ~20% slower than int8; page 1024 int4 is ~18% faster
-  than page-1024 int8 and ~2.6x the page-256 engine baseline, plus 2x KV
-  capacity; see tools/exp_int4_unpack.py for the variants measured).
-
-* rule-based masking in the paged layout (the reference's policy engine
-  carried into serving): ``rule`` may be a ``LocalRule(window_size,
-  log2_stride_size, is_causal)`` — pages entirely below the oldest query
-  row's strided window are **skipped before any load** (a per-slot
-  first-live-page scalar shifts the page stream, the serving analog of the
-  training kernels' skip-before-load schedule), and the window/stride
-  predicate is applied per element in-kernel.  Decode always enforces
-  left-to-right causal ordering on top of the rule (tokens to the right of
-  a query row do not exist for an autoregressive step).
-
-Sequence lengths are runtime values (continuous batching), so skipping is
-driven by prefetched per-slot page counts rather than the trace-time
-schedule the training kernels use.
+``returning_l_m`` returns the per-row online-softmax statistics
+``(o, l, m)`` with ``m`` in the base-2 domain, so partial attentions over
+disjoint KV shards merge exactly (sequence-sharded decode).
 """
 
 from __future__ import annotations
@@ -62,12 +40,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..block_sizes import LANE, VMEM_LIMIT, pad_to
-from ..mask_rules import CausalRule, FullRule, LocalRule, MaskRule
-from ..ops.kernel_common import LOG2E, NEG_INF_F32
+from ..block_sizes import next_pow2
+from ..mask_rules import CausalRule, LocalRule, MaskRule
+from ..ops.backend import ROUTE, compiler_params, default_interpret
+from ..ops.kernel_common import LOG2E, NEG_INF_F32, dot_nn, dot_nt
 from .kv_cache import KVCacheConfig, PagedKVCache, _unpack_nibbles
+
+__all__ = ["paged_decode_attention", "paged_multitoken_decode",
+           "paged_attention_xla"]
 
 
 def _rule_visible(rule, q_pos, kv_pos):
@@ -107,134 +88,93 @@ def _first_live_page(rule, lengths, gamma, page_size, stride=1, offset=0):
         return local.astype(jnp.int32)
     return jnp.zeros_like(lengths, jnp.int32)
 
-__all__ = ["paged_decode_attention", "paged_multitoken_decode"]
-
 
 def _decode_kernel(
-    tables_ref, shard_ref, starts_ref, counts_ref, lengths_ref,  # prefetch
-    q_ref, k_ref, ks_ref, v_ref, vs_ref,          # inputs
-    *refs,                                        # outputs + scratch
-    n_kv: int,
+    tables_ref, starts_ref, counts_ref, lengths_ref, offset_ref,
+    q_ref, k_ref, ks_ref, v_ref, vs_ref,
+    o_ref, l_ref, m_ref,
+    *,
     page_size: int,
     max_pages: int,
-    scale: float,
+    block_rows: int,
+    pack: int,
     quantized: bool,
-    pack: int = 1,
-    gamma: int = 1,
-    rule: MaskRule = CausalRule(),
-    return_lm: bool = False,
-    page_stride: int = 1,
+    rule: MaskRule,
+    page_stride: int,
 ):
-    # sequence sharding: local page j holds global page j*stride + offset
-    # (shard_ref[0]); lengths_ref carries GLOBAL lengths, counts_ref the
-    # LOCAL page counts — stride 1 / offset 0 is the single-shard case
-    if return_lm:
-        o_ref, l_ref, m_ref, acc_ref, m_scratch, l_scratch = refs
-    else:
-        o_ref, acc_ref, m_scratch, l_scratch = refs
-        l_ref = m_ref = None
     b = pl.program_id(0)
-    p = pl.program_id(1)
+    h = pl.program_id(1)
     page_rows = page_size // pack
+    n_sub = page_rows // block_rows
+    start = starts_ref[b]
+    n_tiles = (counts_ref[b] - start) * n_sub
+    q_pos = lengths_ref[b] - 1          # the one query row's GLOBAL position
+    offset = offset_ref[0]
+    q = q_ref[...]                       # (g_pad, d), prescaled by scale·log2e
+    cdt = jnp.bfloat16 if quantized else k_ref.dtype
+    q = q.astype(cdt)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (1, block_rows), 1)
 
-    @pl.when(p == 0)
-    def _init():
-        m_scratch[...] = jnp.full_like(m_scratch, NEG_INF_F32)
-        l_scratch[...] = jnp.zeros_like(l_scratch)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    # the page stream starts at the rule's first live page (skip-before-load)
-    lp = starts_ref[b] + p
-    gp = lp * page_stride + shard_ref[0]          # global page index
-
-    @pl.when(p < counts_ref[b] - starts_ref[b])
-    def _compute():
-        def bounds_for(token_pos):
-            if gamma == 1:
-                return _rule_visible(rule, lengths_ref[b] - 1, token_pos)
-            # speculative multi-token decode: row r holds draft position
-            # r mod gamma at absolute position lengths - gamma + (r mod
-            # gamma); it attends (rule-constrained) up to and incl. itself
-            row_mod = jax.lax.broadcasted_iota(
-                jnp.int32, (1, q_ref.shape[2], 1), 1) % gamma
-            q_pos = lengths_ref[b] - gamma + row_mod
-            return _rule_visible(rule, q_pos, token_pos)
-
-        # all heads at once via head-batched dot_generals: one op stream per
-        # page regardless of head count (decode is per-step-overhead bound)
-        q = q_ref[0]                               # (n_kv, g_pad, d)
-        k = k_ref[:, 0]                            # (n_kv, page_rows, d)
-        v = v_ref[:, 0]
+    def body(i, carry):
+        acc, m_prev, l_prev = carry
+        lp = start + jax.lax.div(i, jnp.int32(n_sub))
+        sub = jax.lax.rem(i, jnp.int32(n_sub))
+        # rolling table: logical pages wrap modulo the table width
+        phys = tables_ref[b * max_pages + jax.lax.rem(lp, jnp.int32(max_pages))]
+        gp = lp * page_stride + offset               # global page index
+        rows = pl.ds(pl.multiple_of(sub * block_rows, block_rows), block_rows)
+        k = k_ref[h, phys, rows, :]
+        v = v_ref[h, phys, rows, :]
         if pack == 2:
-            # int4: byte row r holds tokens 2r (low nibble) / 2r+1 (high);
-            # attend to the even/odd halves as two half-page key sets
             ke, ko = _unpack_nibbles(k)
             ve, vo = _unpack_nibbles(v)
-            halves = ((ke.astype(jnp.bfloat16), ve.astype(jnp.bfloat16), 0),
-                      (ko.astype(jnp.bfloat16), vo.astype(jnp.bfloat16), 1))
+            halves = ((ke, ve, 0), (ko, vo, 1))
         else:
-            if quantized:
-                k = k.astype(jnp.bfloat16)
-                v = v.astype(jnp.bfloat16)
             halves = ((k, v, 0),)
-
         parts = []
         for kh, vh, nib in halves:
-            s = jax.lax.dot_general(
-                q.astype(kh.dtype), kh, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )                                      # (n_kv, g_pad, page_rows)
+            s = dot_nt(q, kh.astype(cdt))            # (g_pad, block_rows)
             if quantized:
-                # post-scale: per-token K scales fold into the logits multiply
-                s = s * (ks_ref[:, 0, nib][:, None, :] * jnp.float32(scale * LOG2E))
-            else:
-                s = s * jnp.float32(scale * LOG2E)
-            token_pos = (gp * page_size + nib) + pack * jax.lax.broadcasted_iota(
-                jnp.int32, (1, 1, page_rows), 2)
-            s = jnp.where(bounds_for(token_pos), s, NEG_INF_F32)
+                s = s * ks_ref[h, phys, nib, rows][None, :]
+            tok = gp * page_size + nib + pack * (sub * block_rows + iota)
+            s = jnp.where(_rule_visible(rule, q_pos, tok), s, NEG_INF_F32)
             parts.append((s, vh, nib))
-
-        m_prev = m_scratch[:, :, :1]
-        l_prev = l_scratch[:, :, :1]
-        m_curr = parts[0][0].max(axis=2, keepdims=True)
+        m_curr = jnp.max(parts[0][0], axis=1)
         for s, _, _ in parts[1:]:
-            m_curr = jnp.maximum(m_curr, s.max(axis=2, keepdims=True))
+            m_curr = jnp.maximum(m_curr, jnp.max(s, axis=1))
         m_next = jnp.maximum(m_prev, m_curr)
         alpha = jnp.exp2(m_prev - m_next)
-        # a row with no visible key yet has m_next == NEG_INF, making
-        # exp2(s - m_next) == 1 on its masked entries; zero those rows
-        # (LocalRule page-skipping can defer a row's first live key past
-        # the first processed page — causal rows always see key 0)
-        row_live = m_next > jnp.float32(NEG_INF_F32 * 0.5)
-        pv = None
-        l_add = None
+        # a row with no visible key yet keeps m at the masking floor, where
+        # exp2(s - m) of its masked entries would be 1: zero such rows
+        # (a LocalRule can put a row's first live key past the first tile)
+        live = (m_next > jnp.float32(NEG_INF_F32 * 0.5))[:, None]
+        l_next = alpha * l_prev
+        acc = acc * alpha[:, None]
         for s, vh, nib in parts:
-            pw = jnp.where(row_live, jnp.exp2(s - m_next), 0.0)
-            ps = jnp.sum(pw, axis=2, keepdims=True)
-            l_add = ps if l_add is None else l_add + ps
+            p = jnp.where(live, jnp.exp2(s - m_next[:, None]), 0.0)
+            l_next = l_next + jnp.sum(p, axis=1)
             if quantized:
-                # post-scale: per-token V scales fold into the probabilities
-                pw = pw * vs_ref[:, 0, nib][:, None, :]
-            contrib = jax.lax.dot_general(
-                pw.astype(vh.dtype), vh, (((2,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )                                      # (n_kv, g_pad, d)
-            pv = contrib if pv is None else pv + contrib
-        l_next = alpha * l_prev + l_add
-        m_scratch[...] = jnp.broadcast_to(m_next, m_scratch.shape)
-        l_scratch[...] = jnp.broadcast_to(l_next, l_scratch.shape)
-        acc_ref[...] = acc_ref[...] * alpha + pv
+                p = p * vs_ref[h, phys, nib, rows][None, :]
+            acc = acc + dot_nn(p.astype(cdt), vh.astype(cdt))
+        return acc, m_next, l_next
 
-    @pl.when(p == max_pages - 1)
-    def _finalize():
-        l_col = l_scratch[:, :, :1]
-        l_safe = jnp.where(l_col == 0.0, 1.0, l_col)
-        o_ref[0] = (acc_ref[...] / l_safe).astype(o_ref.dtype)
-        if return_lm:
-            # per-row softmax statistics for cross-shard merging (base-2,
-            # i.e. m is in the same exp2 domain the kernel works in)
-            l_ref[0] = l_scratch[...]
-            m_ref[0] = m_scratch[...]
+    g_pad = q.shape[0]
+    init = (jnp.zeros((g_pad, o_ref.shape[1]), jnp.float32),
+            jnp.full((g_pad,), NEG_INF_F32, jnp.float32),
+            jnp.zeros((g_pad,), jnp.float32))
+    acc, m_i, l_i = jax.lax.fori_loop(0, n_tiles, body, init)
+    l_safe = jnp.where(l_i == 0.0, 1.0, l_i)
+    o_ref[...] = (acc / l_safe[:, None]).astype(o_ref.dtype)
+    l_ref[...] = l_i
+    m_ref[...] = m_i
+
+
+def _block_rows(cfg: KVCacheConfig) -> int:
+    """Tokens (byte rows for int4) per kernel tile: a power of two that
+    divides the page."""
+    want = 128 if jnp.dtype(cfg.payload_dtype).itemsize == 1 else 64
+    rows = cfg.page_rows
+    return min(want, rows & -rows)
 
 
 def paged_decode_attention(
@@ -260,31 +200,26 @@ def paged_decode_attention(
     (a traced scalar), pass ``global_lengths`` so masking and window
     skipping run on global token positions while page counts stay local.
 
-    ``rule``: masking rule (Full/Causal behave identically at decode —
-    left-to-right ordering is always enforced; ``LocalRule`` restricts
-    each query to its strided window and pages below the window are never
-    loaded).
-
-    ``returning_l_m``: also return the per-row online-softmax statistics
-    ``(o, l, m)`` — each (max_seqs, n_q_heads) f32, ``m`` in the kernel's
-    base-2 domain — so partial attentions over disjoint KV shards can be
-    merged exactly (sequence-sharded decode; same merge contract as the
-    training kernels' ``(O, l, m)`` outputs).
+    ``rule``: Full and Causal behave identically at decode (left-to-right
+    ordering is always enforced); ``LocalRule`` restricts each query to
+    its strided window and pages below the window are never loaded.
     """
     if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
+        interpret = default_interpret()
     max_seqs, n_q_heads, d = q.shape
     n_kv = cfg.n_kv_heads
     if n_q_heads % n_kv:
         raise ValueError(f"q heads {n_q_heads} not a multiple of kv heads {n_kv}")
     g = n_q_heads // n_kv
-    g_pad = max(8, pad_to(g, 8))
+    g_pad = max(16, next_pow2(g))
     d_pad = cfg.head_dim_store
     assert cache.k_pages.shape[-1] == d_pad, (cache.k_pages.shape, d_pad)
     if scale is None:
         scale = 1.0 / np.sqrt(d)
 
-    qg = q.reshape(max_seqs, n_kv, g, d)
+    # scale·log2(e) folded into q: the kernel's logits feed exp2 directly
+    qg = (q.astype(jnp.float32) * jnp.float32(scale * LOG2E)).astype(q.dtype)
+    qg = qg.reshape(max_seqs, n_kv, g, d)
     qg = jnp.pad(qg, ((0, 0), (0, 0), (0, g_pad - g), (0, d_pad - d)))
 
     glob_len = cache.lengths if global_lengths is None else global_lengths
@@ -293,86 +228,104 @@ def paged_decode_attention(
     counts = -(-cache.lengths // cfg.page_size)
     starts = _first_live_page(rule, glob_len, 1, cfg.page_size,
                               page_stride, offset[0])
-    max_pages = cfg.max_pages_per_seq
-    quantized = cfg.quantized
-    pack = cfg.tok_pack
-    page_rows = cfg.page_rows
+    k_scales, v_scales = cache.k_scales, cache.v_scales
+    if not cfg.quantized:
+        # placeholders keep the kernel signature uniform; never read
+        k_scales = v_scales = jnp.ones((1,), jnp.float32)
 
-    def page_idx(b, p, t, sh, s, c, L):
-        lp = jnp.maximum(0, jnp.minimum(s[b] + p, c[b] - 1))
-        # rolling table: logical pages wrap modulo the table width
-        return (0, t[b, lp % max_pages], 0, 0)
-
-    def q_idx(b, p, t, sh, s, c, L):
-        return (b, 0, 0, 0)
-
+    whole = pl.BlockSpec()
+    per_head = lambda *tail: pl.BlockSpec(
+        (None, None) + tail, lambda b, h: (b, h) + (0,) * len(tail))
     kernel = functools.partial(
-        _decode_kernel,
-        n_kv=n_kv,
-        page_size=cfg.page_size,
-        max_pages=max_pages,
-        scale=float(scale),
-        quantized=quantized,
-        pack=pack,
-        rule=rule,
-        return_lm=returning_l_m,
-        page_stride=page_stride,
-    )
-
-    k_scales = cache.k_scales
-    v_scales = cache.v_scales
-    if not quantized:
-        # dummy 1-page scale operands keep the kernel signature uniform
-        k_scales = jnp.ones((n_kv, 1, 1, page_rows), jnp.float32)
-        v_scales = k_scales
-
-    def scales_idx(b, p, t, sh, s, c, L):
-        if quantized:
-            return page_idx(b, p, t, sh, s, c, L)
-        return (0, 0, 0, 0)
-
-    sc_rows = k_scales.shape[2]
-    out_shape = [jax.ShapeDtypeStruct((max_seqs, n_kv, g_pad, d_pad), q.dtype)]
-    out_specs = [pl.BlockSpec((1, n_kv, g_pad, d_pad), q_idx)]
-    if returning_l_m:
-        lm_shape = jax.ShapeDtypeStruct((max_seqs, n_kv, g_pad, LANE), jnp.float32)
-        out_shape += [lm_shape, lm_shape]
-        out_specs += [pl.BlockSpec((1, n_kv, g_pad, LANE), q_idx)] * 2
-    outs = pl.pallas_call(
+        _decode_kernel, page_size=cfg.page_size,
+        max_pages=cfg.max_pages_per_seq, block_rows=_block_rows(cfg),
+        pack=cfg.tok_pack, quantized=cfg.quantized, rule=rule,
+        page_stride=page_stride)
+    o, l, m = pl.pallas_call(
         kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=5,
-            grid=(max_seqs, max_pages),
-            in_specs=[
-                pl.BlockSpec((1, n_kv, g_pad, d_pad), q_idx),
-                pl.BlockSpec((n_kv, 1, page_rows, d_pad), page_idx),
-                pl.BlockSpec((n_kv, 1, sc_rows, page_rows), scales_idx),
-                pl.BlockSpec((n_kv, 1, page_rows, d_pad), page_idx),
-                pl.BlockSpec((n_kv, 1, sc_rows, page_rows), scales_idx),
-            ],
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((n_kv, g_pad, d_pad), jnp.float32),
-                pltpu.VMEM((n_kv, g_pad, LANE), jnp.float32),
-                pltpu.VMEM((n_kv, g_pad, LANE), jnp.float32),
-            ],
-        ),
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=VMEM_LIMIT,
-        ),
+        grid=(max_seqs, n_kv),
+        in_specs=[whole] * 5 + [per_head(g_pad, d_pad)] + [whole] * 4,
+        out_specs=[per_head(g_pad, d_pad), per_head(g_pad), per_head(g_pad)],
+        out_shape=[
+            jax.ShapeDtypeStruct((max_seqs, n_kv, g_pad, d_pad), q.dtype),
+            jax.ShapeDtypeStruct((max_seqs, n_kv, g_pad), jnp.float32),
+            jax.ShapeDtypeStruct((max_seqs, n_kv, g_pad), jnp.float32),
+        ],
+        backend=ROUTE,
+        compiler_params=compiler_params(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(jnp.asarray(cache.page_tables), offset, starts, counts.astype(jnp.int32),
-      glob_len.astype(jnp.int32),
+        name="fa_paged_decode",
+    )(jnp.asarray(cache.page_tables, jnp.int32).reshape(-1), starts,
+      counts.astype(jnp.int32), glob_len.astype(jnp.int32), offset,
       qg, cache.k_pages, k_scales, cache.v_pages, v_scales)
 
-    o = outs[0][:, :, :g, :d].reshape(max_seqs, n_q_heads, d)
+    o = o[:, :, :g, :d].reshape(max_seqs, n_q_heads, d)
     if returning_l_m:
-        l = outs[1][:, :, :g, 0].reshape(max_seqs, n_q_heads)
-        m = outs[2][:, :, :g, 0].reshape(max_seqs, n_q_heads)
-        return o, l, m
+        return (o, l[:, :, :g].reshape(max_seqs, n_q_heads),
+                m[:, :, :g].reshape(max_seqs, n_q_heads))
     return o
+
+
+def _dequantized_pages(cache: PagedKVCache, cfg: KVCacheConfig, phys):
+    """K/V of physical pages ``phys`` (any int shape ``P``), dequantized to
+    float32 in token order: ``(n_kv, *P, page_size, d_store)`` each."""
+
+    def deq(pages, scales):
+        x = pages[:, phys]                        # (n_kv, *P, rows, d)
+        if cfg.is_int4:
+            even, odd = _unpack_nibbles(x)
+            x = jnp.stack([even, odd], axis=-2)   # (..., rows, 2, d)
+            x = x.reshape(x.shape[:-3] + (cfg.page_size, x.shape[-1]))
+        x = x.astype(jnp.float32)
+        if cfg.quantized:
+            sc = scales[:, phys]                  # (n_kv, *P, pack, rows)
+            sc = jnp.swapaxes(sc, -1, -2).reshape(sc.shape[:-2] + (cfg.page_size,))
+            x = x * sc[..., None]
+        return x
+
+    return deq(cache.k_pages, cache.k_scales), deq(cache.v_pages, cache.v_scales)
+
+
+def paged_attention_xla(qg, cache, cfg, tables, first, counts, q_pos, *,
+                        rule: MaskRule, total=None, page_stride: int = 1,
+                        offset=0):
+    """Plain XLA paged attention: gather, dequantize, masked softmax.
+
+    ``qg``: (R, n_kv, rows, d_store), already scaled by ``scale·log2e``;
+    ``tables``: (R, max_pages) page-table rows; ``first``/``counts``: (R,)
+    LOCAL first live page and page count; ``q_pos``: (R, rows) GLOBAL
+    query positions; ``total`` (optional, (R,)) bounds the visible keys.
+    Returns ``(o, l, m)`` — (R, n_kv, rows, d_store) and (R, n_kv, rows)
+    float32, ``m`` in the base-2 domain, rows with no visible key give
+    ``o = 0, l = 0, m = NEG_INF``.
+    """
+    max_pages = cfg.max_pages_per_seq
+    lp = first[:, None] + jnp.arange(max_pages, dtype=jnp.int32)[None, :]
+    page_ok = lp < counts[:, None]                          # (R, P)
+    phys = jnp.take_along_axis(tables, lp % max_pages, axis=1)
+    k, v = _dequantized_pages(cache, cfg, phys)             # (n_kv, R, P, ps, d)
+    R = qg.shape[0]
+    T = max_pages * cfg.page_size
+    k = k.reshape(k.shape[0], R, T, k.shape[-1])
+    v = v.reshape(v.shape[0], R, T, v.shape[-1])
+    gp = lp * page_stride + offset
+    kv_pos = (gp[:, :, None] * cfg.page_size
+              + jnp.arange(cfg.page_size, dtype=jnp.int32)).reshape(R, T)
+    kv_ok = jnp.repeat(page_ok, cfg.page_size, axis=1)
+    if total is not None:
+        kv_ok = kv_ok & (kv_pos < total[:, None])
+    s = jnp.einsum("bhrd,hbtd->bhrt", qg.astype(jnp.float32), k,
+                   precision="highest")
+    mask = (kv_ok[:, None, None, :]
+            & _rule_visible(rule, q_pos[:, None, :, None],
+                            kv_pos[:, None, None, :]))
+    s = jnp.where(mask, s, NEG_INF_F32)
+    m = jnp.max(s, axis=-1)
+    p = jnp.where(mask, jnp.exp2(s - m[..., None]), 0.0)
+    l = jnp.sum(p, axis=-1)
+    o = jnp.einsum("bhrt,hbtd->bhrd", p, v, precision="highest")
+    o = o / jnp.where(l == 0.0, 1.0, l)[..., None]
+    return o, l, m
 
 
 def paged_multitoken_decode(
@@ -386,7 +339,6 @@ def paged_multitoken_decode(
     page_stride: int = 1,
     page_offset=None,
     global_lengths=None,
-    interpret: Optional[bool] = None,
 ):
     """Speculative verification attention: ``gamma`` tokens per slot.
 
@@ -395,122 +347,41 @@ def paged_multitoken_decode(
     ``lengths - gamma .. lengths`` of each slot (their K/V must already be
     appended, so ``cache.lengths`` INCLUDES the drafts).  Draft i attends
     causally through position ``lengths - gamma + i``.  Returns
-    (max_seqs, gamma, n_q_heads, head_dim).
-
-    Same kernel as single-token decode (which is the gamma=1 special
-    case): the only difference is a per-row causal bound, so verification
-    costs one pass of the same page stream — the basis of lossless greedy
-    speculative decoding in the engine.
+    (max_seqs, gamma, n_q_heads, head_dim).  Plain XLA: speculative
+    decoding is off the default serving path.
     """
-    if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
     max_seqs, gamma, n_q_heads, d = q.shape
     n_kv = cfg.n_kv_heads
     if n_q_heads % n_kv:
         raise ValueError(f"q heads {n_q_heads} not a multiple of kv heads {n_kv}")
     g = n_q_heads // n_kv
-    rows = g * gamma
-    # padding rows land on arbitrary (r mod gamma) draft positions, which
-    # is harmless: softmax is per-row, every row keeps key 0 live (its
-    # causal bound is >= 1), and padded outputs are sliced off below
-    rows_pad = max(8, pad_to(rows, 8))
     d_pad = cfg.head_dim_store
     if scale is None:
         scale = 1.0 / np.sqrt(d)
 
     # gamma-minor rows: row r = head_in_group * gamma + draft_index
-    qg = q.reshape(max_seqs, gamma, n_kv, g, d)
-    qg = jnp.transpose(qg, (0, 2, 3, 1, 4)).reshape(max_seqs, n_kv, rows, d)
-    qg = jnp.pad(qg, ((0, 0), (0, 0), (0, rows_pad - rows), (0, d_pad - d)))
+    qg = q.reshape(max_seqs, gamma, n_kv, g, d).astype(jnp.float32)
+    qg = jnp.transpose(qg, (0, 2, 3, 1, 4)).reshape(max_seqs, n_kv, g * gamma, d)
+    qg = jnp.pad(qg * jnp.float32(scale * LOG2E),
+                 ((0, 0), (0, 0), (0, 0), (0, d_pad - d)))
 
     glob_len = cache.lengths if global_lengths is None else global_lengths
-    offset = jnp.zeros((1,), jnp.int32) if page_offset is None else (
-        jnp.asarray(page_offset, jnp.int32).reshape(1))
+    offset = 0 if page_offset is None else jnp.asarray(page_offset, jnp.int32)
     counts = -(-cache.lengths // cfg.page_size)
-    starts = _first_live_page(rule, glob_len, gamma, cfg.page_size,
-                              page_stride, offset[0])
-    max_pages = cfg.max_pages_per_seq
-    quantized = cfg.quantized
-    pack = cfg.tok_pack
-    page_rows = cfg.page_rows
+    first = _first_live_page(rule, glob_len, gamma, cfg.page_size,
+                             page_stride, offset)
+    draft = jnp.arange(g * gamma, dtype=jnp.int32) % gamma
+    q_pos = glob_len[:, None] - gamma + draft[None, :]
+    o, l, m = paged_attention_xla(
+        qg, cache, cfg, cache.page_tables, first, counts.astype(jnp.int32),
+        q_pos, rule=rule, page_stride=page_stride, offset=offset)
 
-    def page_idx(b, p, t, sh, s, c, L):
-        lp = jnp.maximum(0, jnp.minimum(s[b] + p, c[b] - 1))
-        # rolling table: logical pages wrap modulo the table width
-        return (0, t[b, lp % max_pages], 0, 0)
+    def rowsplit(x):
+        x = x.reshape((max_seqs, n_kv, g, gamma) + x.shape[3:])
+        x = jnp.moveaxis(x, 3, 1)                 # (S, gamma, n_kv, g, ...)
+        return x.reshape((max_seqs, gamma, n_q_heads) + x.shape[4:])
 
-    def q_idx(b, p, t, sh, s, c, L):
-        return (b, 0, 0, 0)
-
-    kernel = functools.partial(
-        _decode_kernel,
-        n_kv=n_kv,
-        page_size=cfg.page_size,
-        max_pages=max_pages,
-        scale=float(scale),
-        quantized=quantized,
-        pack=pack,
-        gamma=gamma,
-        rule=rule,
-        return_lm=returning_l_m,
-        page_stride=page_stride,
-    )
-
-    k_scales = cache.k_scales
-    v_scales = cache.v_scales
-    if not quantized:
-        k_scales = jnp.ones((n_kv, 1, 1, page_rows), jnp.float32)
-        v_scales = k_scales
-
-    def scales_idx(b, p, t, sh, s, c, L):
-        if quantized:
-            return page_idx(b, p, t, sh, s, c, L)
-        return (0, 0, 0, 0)
-
-    sc_rows = k_scales.shape[2]
-    out_shape = [jax.ShapeDtypeStruct((max_seqs, n_kv, rows_pad, d_pad), q.dtype)]
-    out_specs = [pl.BlockSpec((1, n_kv, rows_pad, d_pad), q_idx)]
+    o = rowsplit(o[..., :d]).astype(q.dtype)
     if returning_l_m:
-        lm_shape = jax.ShapeDtypeStruct((max_seqs, n_kv, rows_pad, LANE), jnp.float32)
-        out_shape += [lm_shape, lm_shape]
-        out_specs += [pl.BlockSpec((1, n_kv, rows_pad, LANE), q_idx)] * 2
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=5,
-            grid=(max_seqs, max_pages),
-            in_specs=[
-                pl.BlockSpec((1, n_kv, rows_pad, d_pad), q_idx),
-                pl.BlockSpec((n_kv, 1, page_rows, d_pad), page_idx),
-                pl.BlockSpec((n_kv, 1, sc_rows, page_rows), scales_idx),
-                pl.BlockSpec((n_kv, 1, page_rows, d_pad), page_idx),
-                pl.BlockSpec((n_kv, 1, sc_rows, page_rows), scales_idx),
-            ],
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((n_kv, rows_pad, d_pad), jnp.float32),
-                pltpu.VMEM((n_kv, rows_pad, LANE), jnp.float32),
-                pltpu.VMEM((n_kv, rows_pad, LANE), jnp.float32),
-            ],
-        ),
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=VMEM_LIMIT,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(cache.page_tables), offset, starts, counts.astype(jnp.int32),
-      glob_len.astype(jnp.int32),
-      qg, cache.k_pages, k_scales, cache.v_pages, v_scales)
-
-    def rowsplit(x, dd):
-        x = x[:, :, :rows].reshape(max_seqs, n_kv, g, gamma, -1)[..., :dd]
-        return jnp.transpose(x, (0, 3, 1, 2, 4)).reshape(
-            max_seqs, gamma, n_q_heads, dd)
-
-    o = rowsplit(outs[0], d)
-    if returning_l_m:
-        l = rowsplit(outs[1], 1)[..., 0]     # (max_seqs, gamma, n_q_heads)
-        m = rowsplit(outs[2], 1)[..., 0]
-        return o, l, m
+        return o, rowsplit(l), rowsplit(m)
     return o

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..mask_rules import LocalRule
+from ..ops.backend import default_interpret
 from ..models.transformer import ModelConfig, _mlp_block, _rms_norm
 from ..parallel.sharded import mha
 from .decode import paged_decode_attention, paged_multitoken_decode
@@ -57,12 +58,9 @@ class EngineConfig:
     prefill_buckets: tuple = (128, 512)
     seed: int = 0               # PRNG seed for sampled requests
     # "chunked": prompts run prefill_chunk tokens at a time through the
-    # paged prefill kernel (bounded step latency; enables prefix caching).
+    # paged prefill path (bounded step latency; enables prefix caching).
     # "bucketed": whole prompt in one padded pass through the training
     # kernel (legacy path, kept as a cross-check).
-    # With kv_quant_dtype="int4", keep prefill_chunk a multiple of 256 (or
-    # of page_size) so chunk KV writes stay on the aliased-kernel fast
-    # path — misaligned chunks fall back to the XLA scatter spec.
     prefill_mode: str = "chunked"
     prefill_chunk: int = 128
     prefix_caching: bool = True  # chunked mode only
@@ -102,8 +100,7 @@ class DecodeEngine:
     their INT8 scales — zero collectives inside attention), and every
     compiled step runs under ``shard_map`` with one ``psum`` per
     projection.  Across hosts the same specs span processes via
-    ``jax.distributed`` — axis placement is the only control surface
-    (BASELINE north star: heads+cache sharded over a v5e-16 slice).
+    ``jax.distributed`` — axis placement is the only control surface.
 
     Context parallel — ``mesh`` with a ``seq`` axis: KV pages place
     round-robin across chips (``n_pages`` is per shard), every chip scans
@@ -122,7 +119,7 @@ class DecodeEngine:
         self.mcfg = model_cfg
         self.ecfg = engine_cfg
         self.params = params
-        self.interpret = (jax.default_backend() not in ("tpu",)) if interpret is None else interpret
+        self.interpret = default_interpret() if interpret is None else interpret
 
         self.mesh = mesh
         axes = dict(mesh.shape) if mesh is not None else {}
@@ -157,8 +154,7 @@ class DecodeEngine:
             # context-parallel serving: KV pages round-robin over seq_axis,
             # every chip scans its own pages, partials merge by one psum.
             # Composes with tensor parallelism: a (model x seq) mesh shards
-            # heads AND pages (the v5e-16 serving topology scaled out in
-            # context).
+            # heads AND pages.
             if model_cfg.n_experts:
                 raise ValueError("context-parallel engine does not support MoE")
             if engine_cfg.prefill_mode != "chunked":
@@ -460,22 +456,20 @@ class DecodeEngine:
                     cache, self._ccfg_loc, slot, start,
                     jnp.swapaxes(k, 0, 1), jnp.swapaxes(v, 0, 1),
                     true_len, self.trash_page,
-                    page_stride=self.cp, page_offset=me,
-                    interpret=self.interpret)
+                    page_stride=self.cp, page_offset=me)
                 o, l, m = paged_prefill_attention(
                     q, cache, self._ccfg_loc, slot, start, true_len,
                     rule=cfg.rule, returning_l_m=True,
-                    page_stride=self.cp, page_offset=me,
-                    interpret=self.interpret)
+                    page_stride=self.cp, page_offset=me)
                 o = _merge_partials(o, l, m, ax).astype(x.dtype)
             else:
                 cache = write_tokens_at(
                     cache, self._ccfg_loc, slot, start,
                     jnp.swapaxes(k, 0, 1), jnp.swapaxes(v, 0, 1),
-                    true_len, self.trash_page, interpret=self.interpret)
+                    true_len, self.trash_page)
                 o = paged_prefill_attention(
                     q, cache, self._ccfg_loc, slot, start, true_len,
-                    rule=cfg.rule, interpret=self.interpret)
+                    rule=cfg.rule)
             x = self._attn_out(layer, x, o.reshape(chunk, -1))
             x = self._mlp(layer, x)
             new_caches.append(cache)
@@ -517,8 +511,7 @@ class DecodeEngine:
                 owner = (glob // self.ecfg.page_size) % self.cp
                 mine = jnp.logical_and(active, owner == me)
                 cache = append_tokens_batched(
-                    cache, self._ccfg_loc, k, v, mine,
-                    self.trash_page, interpret=self.interpret)
+                    cache, self._ccfg_loc, k, v, mine, self.trash_page)
                 o, l, m = paged_decode_attention(
                     q, cache, self._ccfg_loc, rule=cfg.rule,
                     returning_l_m=True, page_stride=self.cp, page_offset=me,
@@ -527,7 +520,7 @@ class DecodeEngine:
                 o = _merge_partials(o, l, m, ax).astype(x.dtype)
             else:
                 cache = append_tokens_batched(cache, self._ccfg_loc, k, v, active,
-                                              self.trash_page, interpret=self.interpret)
+                                              self.trash_page)
                 o = paged_decode_attention(q, cache, self._ccfg_loc,
                                            rule=cfg.rule, interpret=self.interpret)
             x = self._attn_out(layer, x, o.reshape(S, -1))
@@ -577,17 +570,16 @@ class DecodeEngine:
                     act_i = active
                 cache = append_tokens_batched(
                     cache, self._ccfg_loc, k[:, i], v[:, i], act_i,
-                    self.trash_page, interpret=self.interpret)
+                    self.trash_page)
             if ax is not None:
                 o, l, m = paged_multitoken_decode(
                     q, cache, self._ccfg_loc, rule=cfg.rule,
                     returning_l_m=True, page_stride=self.cp, page_offset=me,
-                    global_lengths=glob0 + gamma * active.astype(jnp.int32),
-                    interpret=self.interpret)
+                    global_lengths=glob0 + gamma * active.astype(jnp.int32))
                 o = _merge_partials(o, l, m, ax).astype(x.dtype)
             else:
                 o = paged_multitoken_decode(q, cache, self._ccfg_loc,
-                                            rule=cfg.rule, interpret=self.interpret)
+                                            rule=cfg.rule)
             x = self._attn_out(layer, x, o.reshape(S, gamma, -1))
             x = self._mlp(layer, x)
             new_caches.append(cache)

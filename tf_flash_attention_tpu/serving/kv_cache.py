@@ -13,21 +13,19 @@ Layouts (``pack`` = tokens per stored byte row: 1 for int8/fp8, 2 for int4):
   page_tables: (max_seqs, max_pages_per_seq) int32
   lengths:     (max_seqs,) int32
 
-Scales are stored *token-minor* — one lane-major row per page (two for
-int4: sublane 0 = even-position tokens, sublane 1 = odd) — so the decode
-kernel fetches them as a single contiguous DMA.  The transposed layout
-(page_size, 1) costs a one-lane-wide DMA per page, which measured ~4x
-slower end-to-end on v5e (18% -> 71% of the HBM bandwidth bound at B=16,
-ctx=8k).
+Scales are stored *token-minor* — one contiguous row per page (two for
+int4: row 0 = even-position tokens, row 1 = odd) — so the decode kernel
+reads a tile's scales as one contiguous vector.
 
 INT4 packs tokens pairwise along the *token* axis (byte row r of a page
 holds token 2r in its low nibble, token 2r+1 in its high nibble), keeping
-the lane (feature) axis at full width so every DMA and matmul tile shape
-is unchanged — native ``jnp.int4`` arrays cannot cross jit boundaries on
-all platforms, and lane-axis packing would shrink tiles below the 128-lane
-width.  Kernels sign-extend the nibbles with two shifts and attend to the
-even/odd halves as two half-page key/value sets.
+the feature axis at full width so every tile shape is unchanged — native
+``jnp.int4`` arrays cannot cross jit boundaries on all platforms.  The
+decode kernel sign-extends the nibbles with two shifts and attends to the
+even/odd halves as two half-tile key/value sets.
 
+Writes are XLA scatters and ``dynamic_update_slice`` on the cache arrays,
+which the engine donates to its compiled steps so they update in place.
 The page allocator is host-side (free-list); device state is a pytree so
 the whole cache threads through jit.
 """
@@ -35,16 +33,13 @@ the whole cache threads through jit.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..block_sizes import LANE, pad_to
+from ..block_sizes import pad_dim
 
 __all__ = ["KVCacheConfig", "PagedKVCache", "PageAllocator", "write_tokens_at",
            "gather_sequence_kv"]
@@ -66,9 +61,9 @@ class KVCacheConfig:
 
     @property
     def head_dim_store(self) -> int:
-        # storage feature dim padded to the TPU lane width so kernel block
-        # specs never read past the array
-        return pad_to(self.head_dim, LANE)
+        # storage feature dim padded to the decode kernel's tile width (the
+        # next power of two >= 16) so its loads never read past the array
+        return pad_dim(self.head_dim)
 
     @property
     def is_int4(self) -> bool:
@@ -177,6 +172,16 @@ def _unpack_nibbles(x):
     return even, odd
 
 
+def _head_index(cfg: KVCacheConfig):
+    """``(n_kv_heads, 1)`` head indices for per-token cache scatters.
+
+    Indexing the head axis with an array, rather than slicing it, makes
+    every scattered axis a leading one: with a sliced head axis XLA
+    transposes the whole cache to move the scattered axes first, and back.
+    """
+    return jnp.arange(cfg.n_kv_heads, dtype=jnp.int32)[:, None]
+
+
 def append_token(cache: PagedKVCache, cfg: KVCacheConfig, slot, k_new, v_new) -> PagedKVCache:
     """Append one token's K/V for sequence ``slot``.
 
@@ -283,26 +288,6 @@ def write_prompt(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
     )
 
 
-def _chunk_write_kernel(tables_ref, meta_ref,
-                        kq_ref, ksc_ref, vq_ref, vsc_ref,
-                        kpi_ref, ksi_ref, vpi_ref, vsi_ref,
-                        kpo_ref, kso_ref, vpo_ref, vso_ref,
-                        *, quantized: bool):
-    """Block-copy one aligned row-group of the chunk into its page.
-
-    The aliased page inputs arrive as untouched HBM refs (memory space
-    ANY) purely to carry the aliasing; every output block is fully
-    overwritten, and unvisited pages keep their aliased contents.
-    """
-    del tables_ref, meta_ref, kpi_ref, ksi_ref, vpi_ref, vsi_ref
-    kpo_ref[...] = kq_ref[...][:, None]
-    vpo_ref[...] = vq_ref[...][:, None]
-    if quantized:
-        # scale values are (n_kv, pack, rows) -> page block (n_kv,1,pack,rows)
-        kso_ref[...] = ksc_ref[...][:, None]
-        vso_ref[...] = vsc_ref[...][:, None]
-
-
 def _owned_token_count(total, page_size, stride, offset):
     """Tokens in [0, total) on the shard owning every ``stride``-th page
     starting at ``offset`` (sequence sharding; stride 1 owns everything)."""
@@ -315,120 +300,10 @@ def _owned_token_count(total, page_size, stride, offset):
     return full * page_size + tail
 
 
-def _chunk_write_via_kernel(cache, cfg, slot, start, total, trash_page,
-                            kq, ksc, vq, vsc, page_stride=1, page_offset=None):
-    """Pallas path for the chunked-prefill KV write.
-
-    Requires the engine's alignment invariant (chunks start at multiples
-    of ``rows_block = min(chunk, page_size)``, which divides both chunk
-    and page size), so each grid step fully overwrites one aligned
-    (rows_block/pack, d) byte-row-group of a page — no read-modify-write,
-    no scatter.  Row-groups past ``total`` are routed to the trash page;
-    padding rows inside the last live group land at positions beyond the
-    sequence length, which nothing ever reads and later appends overwrite
-    row-by-row (int4: nibble-by-nibble).
-
-    ``kq/vq``: packed payloads (n_kv, chunk/pack, d_store);
-    ``ksc/vsc``: scales (n_kv, pack, chunk/pack) (quantized only).
-    """
-    n_kv, n_pages, page_rows, d_store = cache.k_pages.shape
-    pack = cfg.tok_pack
-    page_size = cfg.page_size
-    chunk = kq.shape[1] * pack
-    rows_block = min(chunk, page_size)       # tokens per grid step
-    brows = rows_block // pack               # byte rows per grid step
-    n_blocks = chunk // rows_block
-    max_pages = cache.page_tables.shape[1]
-    quantized = cfg.quantized
-    if not quantized:
-        ksc = jnp.zeros((n_kv, 1, chunk), jnp.float32)
-        vsc = ksc
-        k_scales_in = jnp.zeros((n_kv, 1, 1, page_size), jnp.float32)
-        v_scales_in = k_scales_in
-    else:
-        k_scales_in, v_scales_in = cache.k_scales, cache.v_scales
-
-    # logical pages wrap modulo the table width (rolling table): for
-    # bounded-length sequences the modulo is the identity; with a window
-    # rule the engine reuses table slots of pages below the window.
-    # Sequence sharding: this shard owns every page_stride-th global page
-    # starting at meta[4]; row-groups of other shards' pages go to trash.
-    def _phys(tables, meta, off_tok):
-        g = off_tok // page_size
-        if page_stride == 1:
-            logical = g % max_pages
-            own = off_tok < meta[2]
-        else:
-            logical = ((g - meta[4]) // page_stride) % max_pages
-            own = jnp.logical_and(off_tok < meta[2],
-                                  (g % page_stride) == meta[4])
-        return jnp.where(own, tables[meta[0], logical], meta[3])
-
-    def page_idx(i, tables, meta):
-        off_tok = meta[1] + i * rows_block
-        return (0, _phys(tables, meta, off_tok),
-                (off_tok % page_size) // rows_block, 0)
-
-    def scales_idx(i, tables, meta):
-        if not quantized:
-            return (0, 0, 0, 0)
-        off_tok = meta[1] + i * rows_block
-        return (0, _phys(tables, meta, off_tok), 0,
-                (off_tok % page_size) // rows_block)
-
-    def val_idx(i, tables, meta):
-        return (0, i, 0)
-
-    def sc_val_idx(i, tables, meta):
-        return (0, 0, i)
-
-    offset = (jnp.asarray(0, jnp.int32) if page_offset is None
-              else jnp.asarray(page_offset, jnp.int32))
-    meta = jnp.stack([
-        jnp.asarray(slot, jnp.int32), jnp.asarray(start, jnp.int32),
-        jnp.asarray(total, jnp.int32), jnp.asarray(trash_page, jnp.int32),
-        offset])
-    any_spec = pl.BlockSpec(memory_space=pltpu.MemorySpace.ANY)
-    page_block = pl.BlockSpec((n_kv, 1, brows, d_store), page_idx)
-    scales_block = pl.BlockSpec((n_kv, 1, k_scales_in.shape[2], brows), scales_idx)
-    sc_val_block = pl.BlockSpec((n_kv, ksc.shape[1], brows), sc_val_idx)
-    outs = pl.pallas_call(
-        functools.partial(_chunk_write_kernel, quantized=quantized),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(n_blocks,),
-            in_specs=[
-                pl.BlockSpec((n_kv, brows, d_store), val_idx),
-                sc_val_block,
-                pl.BlockSpec((n_kv, brows, d_store), val_idx),
-                sc_val_block,
-                any_spec, any_spec, any_spec, any_spec,
-            ],
-            out_specs=[page_block, scales_block, page_block, scales_block],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct(cache.k_pages.shape, cache.k_pages.dtype),
-            jax.ShapeDtypeStruct(k_scales_in.shape, jnp.float32),
-            jax.ShapeDtypeStruct(cache.v_pages.shape, cache.v_pages.dtype),
-            jax.ShapeDtypeStruct(v_scales_in.shape, jnp.float32),
-        ],
-        # 2 scalar prefetch + 4 value operands; aliased page arrays at 6..9
-        input_output_aliases={6: 0, 7: 1, 8: 2, 9: 3},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-    )(jnp.asarray(cache.page_tables), meta, kq, ksc, vq, vsc,
-      cache.k_pages, k_scales_in, cache.v_pages, v_scales_in)
-    k_pages, k_scales, v_pages, v_scales = outs
-    if not quantized:
-        k_scales = v_scales = None
-    return k_pages, k_scales, v_pages, v_scales
-
-
 def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot, start,
                     k: jax.Array, v: jax.Array, true_len,
                     trash_page: int,
-                    page_stride: int = 1, page_offset=None,
-                    interpret: Optional[bool] = None) -> PagedKVCache:
+                    page_stride: int = 1, page_offset=None) -> PagedKVCache:
     """Write a chunk of tokens at absolute position ``start`` (chunked prefill).
 
     ``k, v``: (n_kv_heads, chunk, head_dim); ``slot``, ``start`` and
@@ -442,50 +317,11 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot, start,
     holds every ``page_stride``-th global page starting at ``page_offset``
     — tokens of other shards' pages route to the trash page and the
     slot's (local) length becomes its owned-token count.
-
-    On TPU, when the engine's chunk/page alignment holds, the write goes
-    through an aliased block-copy Pallas kernel; the XLA-scatter path
-    remains for interpret mode, unaligned chunks, and as the spec.
     """
-    if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
     chunk = k.shape[1]
-    page = cfg.page_size
     pack = cfg.tok_pack
     if pack == 2 and chunk % 2:
         raise ValueError(f"int4 KV requires an even chunk, got {chunk}")
-    # full-page blocks need page byte-rows divisible by the sublane width;
-    # sub-page blocks additionally block the lane-major scale row by chunk
-    # byte-rows, which must then be lane-aligned
-    aligned = (chunk % page == 0 and (page // pack) % 8 == 0) or (
-        page % chunk == 0 and (chunk // pack) % 128 == 0)
-    if not interpret and aligned:
-        def quant(new):
-            vals = _pad_feature(new, cfg.head_dim_store)  # (n_kv, chunk, d)
-            if cfg.is_int4:
-                qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
-                # packed payload + (n_kv, 2, chunk/2) even/odd scales
-                return _pack_nibbles(qv), _pack_scales(sc[..., 0])
-            if cfg.quantized:
-                qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
-                return qv, sc[..., 0][:, None]            # (n_kv, 1, chunk)
-            return vals.astype(cache.k_pages.dtype), None
-
-        kq, ksc = quant(k)
-        vq, vsc = quant(v)
-        total = jnp.asarray(start, jnp.int32) + jnp.asarray(true_len, jnp.int32)
-        k_pages, k_scales, v_pages, v_scales = _chunk_write_via_kernel(
-            cache, cfg, slot, start, total, trash_page, kq, ksc, vq, vsc,
-            page_stride=page_stride, page_offset=page_offset)
-        loc_len = _owned_token_count(
-            total, page, page_stride,
-            0 if page_offset is None else jnp.asarray(page_offset, jnp.int32))
-        return dataclasses.replace(
-            cache,
-            k_pages=k_pages, v_pages=v_pages,
-            k_scales=k_scales, v_scales=v_scales,
-            lengths=cache.lengths.at[slot].set(loc_len),
-        )
     if pack == 2 and jnp.ndim(start) == 0 and isinstance(start, int) and start % 2:
         raise ValueError("int4 chunked writes must start at even positions")
     pos = jnp.asarray(start, jnp.int32) + jnp.arange(chunk, dtype=jnp.int32)
@@ -502,6 +338,8 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot, start,
     phys = jnp.where(valid, phys, trash_page)
     offset = pos % cfg.page_size
 
+    h = _head_index(cfg)
+
     def scatter(pages, scales, new):
         vals = _pad_feature(new, cfg.head_dim_store)      # (n_kv, chunk, d_store)
         if cfg.is_int4:
@@ -514,16 +352,16 @@ def write_tokens_at(cache: PagedKVCache, cfg: KVCacheConfig, slot, start,
             scp = _pack_scales(sc[..., 0])                # (n_kv, 2, chunk/2)
             phys_b = phys[0::2]
             off_b = offset[0::2] // 2
-            pages = pages.at[:, phys_b, off_b, :].set(qb)
-            scales = scales.at[:, phys_b, 0, off_b].set(scp[:, 0])
-            scales = scales.at[:, phys_b, 1, off_b].set(scp[:, 1])
+            pages = pages.at[h, phys_b, off_b].set(qb)
+            scales = scales.at[h, phys_b, 0, off_b].set(scp[:, 0])
+            scales = scales.at[h, phys_b, 1, off_b].set(scp[:, 1])
             return pages, scales
         if cfg.quantized:
             qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
-            pages = pages.at[:, phys, offset, :].set(qv)
-            scales = scales.at[:, phys, 0, offset].set(sc[..., 0])
+            pages = pages.at[h, phys, offset].set(qv)
+            scales = scales.at[h, phys, 0, offset].set(sc[..., 0])
             return pages, scales
-        return pages.at[:, phys, offset, :].set(vals.astype(pages.dtype)), scales
+        return pages.at[h, phys, offset].set(vals.astype(pages.dtype)), scales
 
     k_pages, k_scales = scatter(cache.k_pages, cache.k_scales, k)
     v_pages, v_scales = scatter(cache.v_pages, cache.v_scales, v)
@@ -545,175 +383,21 @@ def assign_page(cache: PagedKVCache, slot: int, logical_page: int, physical_page
     )
 
 
-def _append_rmw_kernel(phys_ref, off_ref,
-                       kq_ref, ksc_ref, vq_ref, vsc_ref,
-                       kpi_ref, ksi_ref, vpi_ref, vsi_ref,
-                       kpo_ref, kso_ref, vpo_ref, vso_ref,
-                       *, page_size: int, quantized: bool, pack: int):
-    """In-place (aliased) read-modify-write of one token row per slot.
-
-    pack == 2 (int4): the token RMWs a single *nibble* of its byte row —
-    an even token owns the whole byte (its odd partner doesn't exist yet),
-    an odd token preserves the even token in the low nibble.
-    """
-    s = pl.program_id(0)
-    off = off_ref[s]
-    page_rows = page_size // pack
-    brow = off // pack
-    row_sel = jax.lax.broadcasted_iota(
-        jnp.int32, (1, 1, page_rows, 1), 2) == brow
-
-    def blend(new_tok, old_pages):
-        new = new_tok[:, None, None, :]
-        if pack == 1:
-            return jnp.where(row_sel, new, old_pages)
-        old32 = old_pages.astype(jnp.int32)
-        q32 = new.astype(jnp.int32) & 0xF
-        byte = jnp.where(off % 2 == 0, q32, (old32 & 0xF) | (q32 << 4))
-        return jnp.where(row_sel, byte, old32).astype(jnp.int8)
-
-    kpo_ref[...] = blend(kq_ref[0], kpi_ref[...])
-    vpo_ref[...] = blend(vq_ref[0], vpi_ref[...])
-    if quantized:
-        n_kv = ksi_ref.shape[0]
-        lane_sel = jax.lax.broadcasted_iota(
-            jnp.int32, (1, 1, 1, page_rows), 3) == brow
-        if pack == 2:
-            sub_sel = jax.lax.broadcasted_iota(
-                jnp.int32, (1, 1, pack, 1), 2) == off % 2
-            lane_sel = jnp.logical_and(lane_sel, sub_sel)
-        # scales come in transposed (n_kv, S): extract lane s by masked
-        # reduction (dynamic lane slices / lane->sublane reshapes do not
-        # lower on Mosaic), keeping the value sublane-major so it
-        # broadcasts cleanly to the (n_kv, 1, pack, page_rows) scale block
-        slot_sel = jax.lax.broadcasted_iota(
-            jnp.int32, ksc_ref.shape, 1) == s
-        ks_col = jnp.sum(jnp.where(slot_sel, ksc_ref[...], 0.0),
-                         axis=1, keepdims=True)            # (n_kv, 1)
-        vs_col = jnp.sum(jnp.where(slot_sel, vsc_ref[...], 0.0),
-                         axis=1, keepdims=True)
-        ksb = jax.lax.broadcast_in_dim(ks_col, (n_kv, 1, 1, page_rows), (0, 3))
-        vsb = jax.lax.broadcast_in_dim(vs_col, (n_kv, 1, 1, page_rows), (0, 3))
-        kso_ref[...] = jnp.where(lane_sel, ksb, ksi_ref[...])
-        vso_ref[...] = jnp.where(lane_sel, vsb, vsi_ref[...])
-
-
-def _append_via_kernel(cache, cfg, phys, offset, kq, ksc, vq, vsc):
-    """Pallas path for the decode-step append: each grid step RMWs its
-    slot's target page in VMEM with the pages aliased in-place, so the
-    update costs one page of DMA per slot instead of an XLA scatter (which
-    lowers to a serial multi-ms update chain on TPU).
-
-    Safe aliasing: two active slots never target the same physical page
-    (each appends at its own length, past any shared prefix); only the
-    trash page can repeat, and its contents are garbage by design.
-    """
-    S = phys.shape[0]
-    n_kv, n_pages, page_rows, d_store = cache.k_pages.shape
-    pack = cfg.tok_pack
-    quantized = cfg.quantized
-    if not quantized:
-        ksc = jnp.zeros((n_kv, S), jnp.float32)
-        vsc = ksc
-        k_scales_in = jnp.zeros((n_kv, 1, 1, cfg.page_size), jnp.float32)
-        v_scales_in = k_scales_in
-    else:
-        k_scales_in, v_scales_in = cache.k_scales, cache.v_scales
-
-    def val_idx(s, phys, off):
-        return (s, 0, 0)
-
-    def sc_val_idx(s, phys, off):
-        # the (n_kv, S) scale values are too small to block per-slot under
-        # TPU tiling rules; load whole and slice the slot lane in-kernel
-        return (0, 0)
-
-    def page_idx(s, phys, off):
-        return (0, phys[s], 0, 0)
-
-    def scales_idx(s, phys, off):
-        if quantized:
-            return (0, phys[s], 0, 0)
-        return (0, 0, 0, 0)
-
-    page_block = pl.BlockSpec((n_kv, 1, page_rows, d_store), page_idx)
-    scales_block = pl.BlockSpec((n_kv, 1, k_scales_in.shape[2], k_scales_in.shape[3]),
-                                scales_idx)
-    outs = pl.pallas_call(
-        functools.partial(_append_rmw_kernel, page_size=cfg.page_size,
-                          quantized=quantized, pack=pack),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(S,),
-            in_specs=[
-                pl.BlockSpec((1, n_kv, d_store), val_idx),
-                pl.BlockSpec((n_kv, S), sc_val_idx),
-                pl.BlockSpec((1, n_kv, d_store), val_idx),
-                pl.BlockSpec((n_kv, S), sc_val_idx),
-                page_block, scales_block, page_block, scales_block,
-            ],
-            out_specs=[page_block, scales_block, page_block, scales_block],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct(cache.k_pages.shape, cache.k_pages.dtype),
-            jax.ShapeDtypeStruct(k_scales_in.shape, jnp.float32),
-            jax.ShapeDtypeStruct(cache.v_pages.shape, cache.v_pages.dtype),
-            jax.ShapeDtypeStruct(v_scales_in.shape, jnp.float32),
-        ],
-        # flattened input indices: 2 scalar-prefetch args, 4 value operands,
-        # then the 4 aliased page arrays at 6..9
-        input_output_aliases={6: 0, 7: 1, 8: 2, 9: 3},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-    )(phys, offset, kq, ksc, vq, vsc,
-      cache.k_pages, k_scales_in, cache.v_pages, v_scales_in)
-    k_pages, k_scales, v_pages, v_scales = outs
-    if not quantized:
-        k_scales = v_scales = None
-    return k_pages, k_scales, v_pages, v_scales
-
-
 def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
                           k_new: jax.Array, v_new: jax.Array,
-                          active: jax.Array, trash_page: int,
-                          interpret: Optional[bool] = None) -> PagedKVCache:
+                          active: jax.Array, trash_page: int) -> PagedKVCache:
     """Append one token per sequence slot (vectorised decode-step write).
 
     ``k_new, v_new``: (max_seqs, n_kv_heads, head_dim); ``active``:
     (max_seqs,) bool.  Inactive slots write to the reserved ``trash_page``
     so the scatter stays branch-free; their lengths do not advance.
-
-    On TPU the write goes through an aliased Pallas RMW kernel (see
-    ``_append_via_kernel``); the XLA-scatter path remains for interpret
-    mode and as the behavioural spec.
     """
-    if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
     lengths = cache.lengths
     logical = (lengths // cfg.page_size) % cfg.max_pages_per_seq
     offset = lengths % cfg.page_size
     phys = jnp.take_along_axis(cache.page_tables, logical[:, None], axis=1)[:, 0]
     phys = jnp.where(active, phys, trash_page)
-
-    if not interpret:
-        def quant(new):
-            vals = _pad_feature(new, cfg.head_dim_store)   # (S, n_kv, d_store)
-            if cfg.quantized:
-                qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
-                return qv, sc[..., 0].T  # (n_kv, S) for the kernel
-            return vals.astype(cache.k_pages.dtype), None
-
-        kq, ksc = quant(k_new)
-        vq, vsc = quant(v_new)
-        k_pages, k_scales, v_pages, v_scales = _append_via_kernel(
-            cache, cfg, phys.astype(jnp.int32), offset.astype(jnp.int32),
-            kq, ksc, vq, vsc)
-        return dataclasses.replace(
-            cache,
-            k_pages=k_pages, v_pages=v_pages,
-            k_scales=k_scales, v_scales=v_scales,
-            lengths=cache.lengths + active.astype(jnp.int32),
-        )
+    h = _head_index(cfg)
 
     def scatter(pages, scales, new):
         # new: (max_seqs, n_kv_heads, d) -> write at [:, phys[s], offset[s], :]
@@ -722,21 +406,21 @@ def append_tokens_batched(cache: PagedKVCache, cfg: KVCacheConfig,
             qv, sc = _quantize_tokens(vals, cfg.quant_dtype)   # (n_kv, S, d)
             brow = offset // 2
             nib = offset % 2
-            old = pages[:, phys, brow, :].astype(jnp.int32)    # (n_kv, S, d)
+            old = pages[h, phys, brow].astype(jnp.int32)       # (n_kv, S, d)
             q32 = qv.astype(jnp.int32) & 0xF
             # even append owns the byte; odd append keeps the low nibble
             byte = jnp.where(nib[None, :, None] == 0,
                              q32, (old & 0xF) | (q32 << 4)).astype(jnp.int8)
-            pages = pages.at[:, phys, brow, :].set(byte)
-            scales = scales.at[:, phys, nib, brow].set(sc[..., 0])
+            pages = pages.at[h, phys, brow].set(byte)
+            scales = scales.at[h, phys, nib, brow].set(sc[..., 0])
             return pages, scales
         if cfg.quantized:
             qv, sc = _quantize_tokens(vals, cfg.quant_dtype)
-            pages = pages.at[:, phys, offset, :].set(qv)
+            pages = pages.at[h, phys, offset].set(qv)
             # token-minor layout: slot s writes scales[:, phys[s], 0, offset[s]]
-            scales = scales.at[:, phys, 0, offset].set(sc[..., 0])
+            scales = scales.at[h, phys, 0, offset].set(sc[..., 0])
             return pages, scales
-        return pages.at[:, phys, offset, :].set(vals.astype(pages.dtype)), scales
+        return pages.at[h, phys, offset].set(vals.astype(pages.dtype)), scales
 
     k_pages, k_scales = scatter(cache.k_pages, cache.k_scales, k_new)
     v_pages, v_scales = scatter(cache.v_pages, cache.v_scales, v_new)
@@ -753,15 +437,15 @@ def gather_sequence_kv(cache: PagedKVCache, cfg: KVCacheConfig, slot: int,
     """Host-side: gather and dequantize one sequence's K/V from its pages.
 
     Returns ``(k, v)`` float32 of shape (n_kv_heads, length, head_dim) —
-    exactly the values the decode/prefill kernels reconstruct, so kernel
-    outputs can be checked against a dense oracle on these with tight
-    tolerances (quantization error cancels out).  Test/debug utility.
+    exactly the values the decode kernel and the prefill path reconstruct,
+    so their outputs can be checked against a dense oracle on these with
+    tight tolerances (quantization error cancels out).  Test/debug utility.
 
     Rolling page tables (sliding-window sequences longer than the table):
     logical pages wrap modulo the table width, so tokens whose table slot
     has been reused return the OVERWRITING page's data — only the last
-    window of a wrapped sequence is recoverable (which is all the kernels
-    ever read).
+    window of a wrapped sequence is recoverable (which is all attention
+    ever reads).
     """
     table = np.asarray(cache.page_tables)[slot]
     L = int(cache.lengths[slot]) if length is None else int(length)

@@ -1,198 +1,45 @@
-"""Paged prefill attention kernel (chunked prefill, q_len = chunk).
+"""Paged prefill attention (chunked prefill, q_len = chunk).
 
 The prefill counterpart of ``decode.paged_decode_attention``: a chunk of
 new query tokens for ONE sequence attends to that sequence's paged
-(optionally INT8/FP8-quantized) KV cache, causally.  This is the kernel
-behind vLLM-style *chunked prefill* and *prefix caching* in the engine
-(no reference counterpart — the reference, a stateless op library, has no
+(optionally quantized) KV cache, causally.  This is the attention behind
+vLLM-style *chunked prefill* and *prefix caching* in the engine (no
+reference counterpart — the reference, a stateless op library, has no
 serving runtime; SURVEY.md §5):
 
 * long prompts are processed ``prefill_chunk`` tokens at a time, so a
-  prompt never monopolises the chip for a full-sequence step — decode
-  steps for other sequences interleave between chunks (bounded step
-  latency, the point of chunked prefill);
+  prompt never holds the device for a full-sequence step — decode steps
+  for other sequences interleave between chunks;
 * a prompt whose page-aligned prefix is already cached (shared,
   refcounted pages) starts at ``start = cached_len`` and only the suffix
-  is ever computed — prefix-cache hits skip both the FLOPs and the HBM
-  writes of the shared prefix.
+  is ever computed.
 
-Kernel design mirrors the decode kernel (same page-table scalar-prefetch
-trick, same post-scaled dequantization, same head-batched dot_generals)
-but with a (g·chunk, d) query block instead of (g, d), which makes the
-per-page matmuls MXU-shaped: prefill is compute-bound, so unlike decode
-the kernel's job is to keep the (rows × d × page) GEMMs large, not to
-minimise per-step overhead.  Causality is a per-element predicate
-``kv_pos <= start + (row mod chunk)`` built from iotas — rule-based
-masking, never a mask tensor, as everywhere in this framework.
+Chunked prefill is compute-bound: the (g·chunk × ctx) products dominate
+and the page gather is small beside them.  So this is plain XLA — gather
+and dequantize the live pages, then masked attention with an fp32
+softmax (``decode.paged_attention_xla``) — whose matrix products XLA
+hands to the GPU's libraries.  Causality and window rules are
+per-element predicates on absolute positions, as everywhere in this
+framework.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..block_sizes import LANE, VMEM_LIMIT, pad_to
-from ..mask_rules import CausalRule, LocalRule, MaskRule
-from ..ops.kernel_common import LOG2E, NEG_INF_F32
-from .decode import _first_live_page, _rule_visible
-from .kv_cache import KVCacheConfig, PagedKVCache, _unpack_nibbles
+from ..mask_rules import CausalRule, MaskRule
+from ..ops.kernel_common import LOG2E
+from .decode import _first_live_page, paged_attention_xla
+from .kv_cache import KVCacheConfig, PagedKVCache
 
 __all__ = ["paged_prefill_attention"]
 
 
-def _prefill_kernel(
-    tables_ref, meta_ref,                         # scalar prefetch
-    q_ref, k_ref, ks_ref, v_ref, vs_ref,          # inputs
-    *refs,                                        # outputs + scratch
-    n_kv: int,
-    chunk: int,
-    page_size: int,
-    max_pages: int,
-    quantized: bool,
-    pack: int = 1,
-    rule: MaskRule = CausalRule(),
-    return_lm: bool = False,
-    page_stride: int = 1,
-):
-    # meta = [slot, LOCAL page_count, GLOBAL total_len, GLOBAL start,
-    #         first_live LOCAL page, shard page offset]
-    # sequence sharding: local page j holds global page j*stride + offset
-    if return_lm:
-        o_ref, l_ref, m_ref, acc_ref, m_scratch, l_scratch = refs
-    else:
-        o_ref, acc_ref, m_scratch, l_scratch = refs
-        l_ref = m_ref = None
-    p = pl.program_id(0)
-    page_rows = page_size // pack
-
-    @pl.when(p == 0)
-    def _init():
-        m_scratch[...] = jnp.full_like(m_scratch, NEG_INF_F32)
-        l_scratch[...] = jnp.zeros_like(l_scratch)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    # page stream starts at the rule's first live page (skip-before-load)
-    lp = meta_ref[4] + p
-    gp = lp * page_stride + meta_ref[5]           # global page index
-
-    @pl.when(p < meta_ref[1] - meta_ref[4])
-    def _compute():
-        total = meta_ref[2]
-        start = meta_ref[3]
-
-        q = q_ref[0]                               # (n_kv, g*chunk, d)
-        k = k_ref[:, 0]                            # (n_kv, page_rows, d)
-        v = v_ref[:, 0]
-        if pack == 2:
-            # int4: even/odd token halves of the nibble-packed page
-            ke, ko = _unpack_nibbles(k)
-            ve, vo = _unpack_nibbles(v)
-            halves = ((ke.astype(jnp.bfloat16), ve.astype(jnp.bfloat16), 0),
-                      (ko.astype(jnp.bfloat16), vo.astype(jnp.bfloat16), 1))
-        else:
-            if quantized:
-                k = k.astype(jnp.bfloat16)
-                v = v.astype(jnp.bfloat16)
-            halves = ((k, v, 0),)
-
-        # scale*LOG2E is pre-folded into q by the wrapper (as in the
-        # training kernels' Q prescale), so s is ready for exp2
-        parts = []
-        for kh, vh, nib in halves:
-            s = jax.lax.dot_general(
-                q.astype(kh.dtype), kh, (((2,), (2,)), ((0,), (0,))),
-                preferred_element_type=jnp.float32,
-            )                                      # (n_kv, g*chunk, page_rows)
-            if quantized:
-                s = s * ks_ref[:, 0, nib][:, None, :]
-            parts.append([s, vh, nib])
-
-        def update(parts):
-            m_prev = m_scratch[:, :, :1]
-            l_prev = l_scratch[:, :, :1]
-            m_curr = parts[0][0].max(axis=2, keepdims=True)
-            for s, _, _ in parts[1:]:
-                m_curr = jnp.maximum(m_curr, s.max(axis=2, keepdims=True))
-            m_next = jnp.maximum(m_prev, m_curr)
-            alpha = jnp.exp2(m_prev - m_next)
-            # masked entries hold the finite NEG_INF approx; exp2 of the
-            # huge negative difference is exactly 0.  A row with no live
-            # key *yet* still has m_next == NEG_INF, which would turn its
-            # masked entries into exp2(0) == 1 — zero such rows (under a
-            # causal rule page 0 is live for every row, but LocalRule page
-            # skipping can defer a row's first live key)
-            row_live = m_next > jnp.float32(NEG_INF_F32 * 0.5)
-            pv = None
-            l_add = None
-            for s, vh, nib in parts:
-                pw = jnp.where(row_live, jnp.exp2(s - m_next), 0.0)
-                ps = jnp.sum(pw, axis=2, keepdims=True)
-                l_add = ps if l_add is None else l_add + ps
-                if quantized:
-                    pw = pw * vs_ref[:, 0, nib][:, None, :]
-                contrib = jax.lax.dot_general(
-                    pw.astype(vh.dtype), vh, (((2,), (1,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                )                                  # (n_kv, g*chunk, d)
-                pv = contrib if pv is None else pv + contrib
-            l_next = alpha * l_prev + l_add
-            m_scratch[...] = jnp.broadcast_to(m_next, m_scratch.shape)
-            l_scratch[...] = jnp.broadcast_to(l_next, l_scratch.shape)
-            acc_ref[...] = acc_ref[...] * alpha + pv
-
-        # interior pages (every key visible to every row) skip the
-        # per-element mask chain entirely — for a chunk at the end of a
-        # long context that is almost every page.  Causal interior:
-        # kv_pos < start <= q_pos <= total.  A LocalRule additionally
-        # requires the page inside the *oldest* row's window (and a
-        # strided rule masks per element, so it never has interiors).
-        interior = (gp + 1) * page_size <= start
-        if isinstance(rule, LocalRule):
-            if rule.log2_stride_size:
-                interior = interior & (gp != gp)  # never
-            else:
-                # the page's oldest key must be inside the *newest* row's
-                # window: (start+chunk-1) - gp*page <= window - 1
-                interior = interior & (
-                    gp * page_size >= start + chunk - rule.strided_window_size)
-
-        @pl.when(interior)
-        def _interior():
-            update(parts)
-
-        @pl.when(jnp.logical_not(interior))
-        def _edge():
-            # row r of the (g*chunk)-row query block is chunk-minor: its
-            # token sits at absolute position start + (r mod chunk)
-            q_pos = start + jax.lax.broadcasted_iota(
-                jnp.int32, (1, q_ref.shape[2], 1), 1) % chunk
-            masked = []
-            for s, vh, nib in parts:
-                kv_pos = (gp * page_size + nib) + pack * jax.lax.broadcasted_iota(
-                    jnp.int32, (1, 1, page_rows), 2)
-                mask = (kv_pos < total) & _rule_visible(rule, q_pos, kv_pos)
-                masked.append([jnp.where(mask, s, NEG_INF_F32), vh, nib])
-            update(masked)
-
-    @pl.when(p == max_pages - 1)
-    def _finalize():
-        l_col = l_scratch[:, :, :1]
-        l_safe = jnp.where(l_col == 0.0, 1.0, l_col)
-        o_ref[0] = (acc_ref[...] / l_safe).astype(o_ref.dtype)
-        if return_lm:
-            # per-row softmax statistics for cross-shard merging
-            l_ref[0] = l_scratch[...]
-            m_ref[0] = m_scratch[...]
-
-
 def paged_prefill_attention(
-    q: jax.Array,
+    q,
     cache: PagedKVCache,
     cfg: KVCacheConfig,
     slot,
@@ -204,7 +51,6 @@ def paged_prefill_attention(
     returning_l_m: bool = False,
     page_stride: int = 1,
     page_offset=None,
-    interpret: Optional[bool] = None,
 ):
     """Causal attention of a prompt chunk against one sequence's paged cache.
 
@@ -216,29 +62,24 @@ def paged_prefill_attention(
     the caller.  ``slot`` and ``start`` are traced scalars, so one
     compilation serves every (slot, chunk position).
     """
-    if interpret is None:
-        interpret = jax.default_backend() not in ("tpu",)
     chunk, n_q_heads, d = q.shape
     n_kv = cfg.n_kv_heads
     if n_q_heads % n_kv:
         raise ValueError(f"q heads {n_q_heads} not a multiple of kv heads {n_kv}")
-    if chunk % 8:
-        raise ValueError(f"prefill chunk {chunk} must be a multiple of 8")
     g = n_q_heads // n_kv
     d_pad = cfg.head_dim_store
-    assert cache.k_pages.shape[-1] == d_pad, (cache.k_pages.shape, d_pad)
     if scale is None:
         scale = 1.0 / np.sqrt(d)
 
-    # chunk-minor row layout: (chunk, n_kv, g, d) -> (n_kv, g*chunk, d),
-    # with scale*log2(e) pre-folded into q (Q prescale, as in the training
-    # kernels) so the kernel's logits feed exp2 directly
-    qg = jnp.swapaxes(q.reshape(chunk, n_kv, g, d), 0, 1)   # (n_kv, chunk, g, d)
+    # chunk-minor rows: (chunk, n_kv, g, d) -> (n_kv, g*chunk, d), row r at
+    # absolute position start + (r mod chunk)
+    qg = jnp.swapaxes(q.reshape(chunk, n_kv, g, d), 0, 1)
     qg = jnp.swapaxes(qg, 1, 2).reshape(n_kv, g * chunk, d)
-    qg = (qg.astype(jnp.float32) * jnp.float32(scale * LOG2E)).astype(q.dtype)
+    qg = qg.astype(jnp.float32) * jnp.float32(scale * LOG2E)
     qg = jnp.pad(qg, ((0, 0), (0, 0), (0, d_pad - d)))[None]
 
-    total = jnp.asarray(start, jnp.int32) + jnp.asarray(true_len, jnp.int32)
+    start = jnp.asarray(start, jnp.int32)
+    total = start + jnp.asarray(true_len, jnp.int32)
     offset = (jnp.asarray(0, jnp.int32) if page_offset is None
               else jnp.asarray(page_offset, jnp.int32))
     n_global = -(-total // cfg.page_size)
@@ -248,94 +89,21 @@ def paged_prefill_attention(
         # local pages on this shard: global pages g with g % stride == offset
         count = jnp.where(n_global > offset,
                           (n_global - offset + page_stride - 1) // page_stride, 0)
-    first_live = _first_live_page(
-        rule, jnp.asarray(start, jnp.int32) + 1, 1, cfg.page_size,
-        page_stride, offset)
-    meta = jnp.stack([
-        jnp.asarray(slot, jnp.int32), count.astype(jnp.int32),
-        total.astype(jnp.int32), jnp.asarray(start, jnp.int32),
-        first_live.astype(jnp.int32), offset])
+    first = _first_live_page(rule, start + 1, 1, cfg.page_size,
+                             page_stride, offset)
+    q_pos = start + jnp.arange(g * chunk, dtype=jnp.int32) % chunk
+    table = jnp.asarray(cache.page_tables)[jnp.asarray(slot, jnp.int32)]
+    o, l, m = paged_attention_xla(
+        qg, cache, cfg, table[None], first.reshape(1),
+        count.astype(jnp.int32).reshape(1), q_pos[None], rule=rule,
+        total=total.reshape(1), page_stride=page_stride, offset=offset)
 
-    max_pages = cfg.max_pages_per_seq
-    quantized = cfg.quantized
-    pack = cfg.tok_pack
-    page_rows = cfg.page_rows
+    def chunkify(x):
+        x = x[0].reshape((n_kv, g, chunk) + x.shape[3:])
+        x = jnp.moveaxis(x, 2, 0)                  # (chunk, n_kv, g, ...)
+        return x.reshape((chunk, n_q_heads) + x.shape[3:])
 
-    def page_idx(p, t, m):
-        lp = jnp.maximum(0, jnp.minimum(m[4] + p, m[1] - 1))
-        # rolling table: logical pages wrap modulo the table width
-        return (0, t[m[0], lp % max_pages], 0, 0)
-
-    def q_idx(p, t, m):
-        return (0, 0, 0, 0)
-
-    kernel = functools.partial(
-        _prefill_kernel,
-        n_kv=n_kv,
-        chunk=chunk,
-        page_size=cfg.page_size,
-        max_pages=max_pages,
-        quantized=quantized,
-        pack=pack,
-        rule=rule,
-        return_lm=returning_l_m,
-        page_stride=page_stride,
-    )
-
-    k_scales = cache.k_scales
-    v_scales = cache.v_scales
-    if not quantized:
-        k_scales = jnp.ones((n_kv, 1, 1, page_rows), jnp.float32)
-        v_scales = k_scales
-
-    def scales_idx(p, t, m):
-        if quantized:
-            return page_idx(p, t, m)
-        return (0, 0, 0, 0)
-
-    sc_rows = k_scales.shape[2]
-    rows = g * chunk
-    out_shape = [jax.ShapeDtypeStruct((1, n_kv, rows, d_pad), q.dtype)]
-    out_specs = [pl.BlockSpec((1, n_kv, rows, d_pad), q_idx)]
+    o = chunkify(o[..., :d]).astype(q.dtype)
     if returning_l_m:
-        lm_shape = jax.ShapeDtypeStruct((1, n_kv, rows, LANE), jnp.float32)
-        out_shape += [lm_shape, lm_shape]
-        out_specs += [pl.BlockSpec((1, n_kv, rows, LANE), q_idx)] * 2
-    outs = pl.pallas_call(
-        kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(max_pages,),
-            in_specs=[
-                pl.BlockSpec((1, n_kv, rows, d_pad), q_idx),
-                pl.BlockSpec((n_kv, 1, page_rows, d_pad), page_idx),
-                pl.BlockSpec((n_kv, 1, sc_rows, page_rows), scales_idx),
-                pl.BlockSpec((n_kv, 1, page_rows, d_pad), page_idx),
-                pl.BlockSpec((n_kv, 1, sc_rows, page_rows), scales_idx),
-            ],
-            out_specs=out_specs,
-            scratch_shapes=[
-                pltpu.VMEM((n_kv, rows, d_pad), jnp.float32),
-                pltpu.VMEM((n_kv, rows, LANE), jnp.float32),
-                pltpu.VMEM((n_kv, rows, LANE), jnp.float32),
-            ],
-        ),
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-            vmem_limit_bytes=VMEM_LIMIT,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(cache.page_tables), meta,
-      qg, cache.k_pages, k_scales, cache.v_pages, v_scales)
-
-    def chunkify(x, dd):
-        x = x[0].reshape(n_kv, g, chunk, -1)[..., :dd]      # (n_kv, g, chunk, dd)
-        return jnp.transpose(x, (2, 0, 1, 3)).reshape(chunk, n_q_heads, dd)
-
-    o = chunkify(outs[0], d)
-    if returning_l_m:
-        l = chunkify(outs[1], 1)[..., 0]                    # (chunk, n_q_heads)
-        m = chunkify(outs[2], 1)[..., 0]
-        return o, l, m
+        return o, chunkify(l), chunkify(m)
     return o

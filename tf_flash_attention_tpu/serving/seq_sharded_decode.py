@@ -10,7 +10,7 @@ same (m, l, O) merge the training-path ring attention uses per hop
 (``parallel/ring.py``), and mathematically the reference's online merge
 (``flash_attention.cu:974-1035``) applied across chips instead of across
 tiles.  The collective payload is (seqs, heads, d) — independent of
-context length — so ICI cost is negligible next to the HBM scan it
+context length — so its cost is negligible next to the cache scan it
 parallelises.
 
 Placement is round-robin at page granularity: global logical page ``g``
@@ -178,8 +178,7 @@ def seq_sharded_paged_decode(mesh: Mesh, cfg: KVCacheConfig, axis: str,
 
 def seq_sharded_paged_prefill(mesh: Mesh, cfg: KVCacheConfig, axis: str,
                               *, scale: Optional[float] = None,
-                              rule: MaskRule = CausalRule(),
-                              interpret: Optional[bool] = None):
+                              rule: MaskRule = CausalRule()):
     """Build ``fn(q, cache, slot, start, true_len) -> o``: context-parallel
     chunked prefill — every chip scans its own pages for the whole chunk
     and the per-row partials merge with one psum, so long-prompt prefill
@@ -195,7 +194,7 @@ def seq_sharded_paged_prefill(mesh: Mesh, cfg: KVCacheConfig, axis: str,
         o, l, m = paged_prefill_attention(
             q, local, cfg, slot, start, true_len, scale=scale, rule=rule,
             returning_l_m=True, page_stride=n,
-            page_offset=jax.lax.axis_index(axis), interpret=interpret)
+            page_offset=jax.lax.axis_index(axis))
         return _merge_partials(o, l, m, axis).astype(q.dtype)
 
     return jax.jit(
@@ -209,8 +208,7 @@ def seq_sharded_paged_prefill(mesh: Mesh, cfg: KVCacheConfig, axis: str,
 
 
 def seq_sharded_append(mesh: Mesh, cfg: KVCacheConfig, axis: str,
-                       trash_page: int,
-                       interpret: Optional[bool] = None):
+                       trash_page: int):
     """Build ``fn(cache, k_new, v_new, active) -> cache``: one decode-step
     append routed to each position's owner shard.
 
@@ -229,7 +227,7 @@ def seq_sharded_append(mesh: Mesh, cfg: KVCacheConfig, axis: str,
         owner = (global_len // cfg.page_size) % n
         mine = jnp.logical_and(active, owner == me)
         new = append_tokens_batched(local, cfg, k_new, v_new, mine,
-                                    trash_page, interpret=interpret)
+                                    trash_page)
         return jax.tree.map(lambda x: x[None] if x is not None else None,
                             new, is_leaf=lambda x: x is None)
 

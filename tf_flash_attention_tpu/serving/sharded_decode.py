@@ -1,13 +1,12 @@
-"""Multi-chip decode: heads + quantized KV cache sharded over ``model``.
+"""Multi-device decode: heads + quantized KV cache sharded over ``model``.
 
-The BASELINE north-star serving topology ("heads+cache sharded over a
-v5e-16 slice"): every chip holds the KV pages of its head shard (including
-their INT8 scales) and runs the paged decode kernel on its local heads —
-**zero collectives inside attention**; the surrounding projections perform
-the usual tensor-parallel reduce.  Page tables and lengths are tiny and
+Every device holds the KV pages of its head shard (including their INT8
+scales) and runs the paged decode kernel on its local heads — **zero
+collectives inside attention**; the surrounding projections perform the
+usual tensor-parallel reduce.  Page tables and lengths are tiny and
 replicated.  Across hosts the same mesh simply spans multiple processes
 (``jax.distributed``); sharding specs are unchanged — axis placement is
-the only control surface (ICI within a slice, DCN across).
+the only control surface.
 """
 
 from __future__ import annotations

@@ -64,7 +64,7 @@ _SHAPES_2D = {"min": (1, 2, 8, 8, 8), "max": (1, 2, 16, 16, 24)}
 
 
 def _dtypes():
-    if jax.default_backend() == "tpu":
+    if jax.default_backend() == "gpu":
         return (jnp.bfloat16, jnp.float32)
     return (jnp.float32,)
 
@@ -141,12 +141,15 @@ def cmd_verify(seq_dims):
 
 
 def cmd_benchmark(seq_dims):
-    from .utils.profiling import device_time
+    from .utils.profiling import median_time
 
+    if jax.default_backend() != "gpu":
+        print("benchmark needs a GPU: JAX found none")
+        return 1
     rng = np.random.default_rng(0)
     print(f"{'case':44s} {'flash_ms':>9s} {'vanilla_ms':>11s} {'speedup':>8s}")
     for name, (rule, mode) in _selected().items():
-        dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+        dtype = jnp.bfloat16
         table = _SHAPES_1D if seq_dims == 1 else _SHAPES_2D
         base = table["max"]
         batch, d = base[:-seq_dims - 1], base[-seq_dims - 1]
@@ -154,13 +157,13 @@ def cmd_benchmark(seq_dims):
         t = lambda s: jnp.asarray(rng.uniform(-2, 2, s), dtype)
         Q, K, V = t(batch + (d,) + seq), t(batch + (d,) + seq), t(batch + (d,) + seq)
 
-        flash = lambda Q, K, V: flash_attention(
-            Q, K, V, rule=rule, sync_mode=mode, seq_dims=seq_dims)
-        vanilla = lambda Q, K, V: flash_attention(
+        flash = jax.jit(lambda Q, K, V: flash_attention(
+            Q, K, V, rule=rule, sync_mode=mode, seq_dims=seq_dims))
+        vanilla = jax.jit(lambda Q, K, V: flash_attention(
             Q, K, V, rule=rule, sync_mode=mode, seq_dims=seq_dims,
-            implementation="xla")
-        tf_ = device_time(flash, (Q, K, V), n=10)
-        tv = device_time(vanilla, (Q, K, V), n=10)
+            implementation="xla"))
+        tf_ = median_time(flash, Q, K, V)
+        tv = median_time(vanilla, Q, K, V)
         print(f"{name:44s} {tf_*1e3:9.3f} {tv*1e3:11.3f} {tv/tf_:8.2f}x")
     stats = jax.local_devices()[0].memory_stats() or {}
     peak = stats.get("peak_bytes_in_use")

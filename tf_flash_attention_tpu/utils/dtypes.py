@@ -28,7 +28,6 @@ __all__ = [
     "l_dtype",
     "canonical_dtype",
     "MASK_VALUE_F32",
-    "HALF_EMULATED",
 ]
 
 
@@ -65,10 +64,6 @@ _NEG_INF_TABLE = {
     jnp.float8_e4m3fn.dtype: -320.0,
     jnp.float8_e5m2.dtype: -49152.0,
 }
-
-#: dtypes whose kernel compute runs in bf16 on TPU (no native MXU path)
-HALF_EMULATED = (jnp.float16.dtype, jnp.float8_e4m3fn.dtype,
-                 jnp.float8_e5m2.dtype)
 
 # Masking value used inside kernels, where logits are always computed in
 # float32 regardless of the input dtype.  Matches the reference's float32

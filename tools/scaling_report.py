@@ -1,24 +1,16 @@
 #!/usr/bin/env python
-"""Scaling report: attention throughput and decode tokens/s across scales.
+"""Multi-device lowering report on a virtual CPU mesh.
 
-BASELINE.json asks for tokens/s scaling at 1 chip / 1 host / N hosts.
-This environment attaches exactly one physical TPU chip, so the report
-has two tiers:
-
-* **measured** — single-chip numbers on the attached TPU (forward
-  TFLOP/s, fwd+bwd TFLOP/s, paged-INT8 decode tokens/s);
-* **validated** — multi-chip configurations (head-sharded attention,
-  ring attention, head+cache-sharded decode, dp/tp/sp/ep and pp/dp train
-  steps) compiled and executed on an N-device virtual mesh
-  (``--xla_force_host_platform_device_count``), proving the sharded
-  lowerings; their throughput extrapolates by the sharding's communication
-  structure (head-sharded attention and decode are collective-free inside
-  the kernel, so they scale linearly in heads until the per-chip batch
-  starves; ring attention overlaps ICI transfers with compute).
+Compiles and runs the multi-device configurations — head-sharded
+attention, ring attention, sequence-sharded paged decode and prefill,
+and the dp/tp/sp/ep, pp/dp and serving steps of
+``__graft_entry__.dryrun_multichip`` — on an N-device virtual mesh
+(``--xla_force_host_platform_device_count``).  It proves the sharded
+lowerings and nothing about speed; the GPU runs are ``chip_smoke.py
+--four``.
 
 Usage:
-  python tools/scaling_report.py            # measured tier (needs TPU)
-  python tools/scaling_report.py --virtual  # validated tier (CPU, 8 devices)
+  python tools/scaling_report.py [-n 8]
 """
 
 import argparse
@@ -26,92 +18,15 @@ import os
 import sys
 
 
-def measured():
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from tf_flash_attention_tpu.block_sizes import BlockConfig
-    from tf_flash_attention_tpu.flops import matmul_flops_forward
-    from tf_flash_attention_tpu.mask_rules import CausalRule
-    from tf_flash_attention_tpu.ops.attend import AttendParams, attend
-    from tf_flash_attention_tpu.sync_modes import make_sync_pack
-    from tf_flash_attention_tpu.utils.profiling import device_time
-
-    print(f"measured tier on {jax.devices()}")
-    rng = np.random.default_rng(0)
-    B, S, D = 8, 4096, 128
-    t = lambda s: jnp.asarray(rng.uniform(-1, 1, s), jnp.bfloat16)
-    q, k, v, do = t((B, S, D)), t((B, S, D)), t((B, S, D)), t((B, S, D))
-    pack = make_sync_pack("none_front", (S,), (S,))
-    # measured-best frontier (docs/TUNING.md): fwd 1024x1024, dq 1024x512,
-    # dkv 512x1024
-    cfg = BlockConfig(1024, 1024, 1024, 512, 512, 1024)
-    params = AttendParams(pack=pack, rule=CausalRule(), config=cfg,
-                          scale=float(1 / np.sqrt(D)), interpret=False)
-
-    fwd = lambda q, k, v: attend(q, k, v, params)[0]
-    dt = device_time(fwd, (q, k, v))
-    flops = matmul_flops_forward(CausalRule(), "none_front", (S,), (S,), D, D, B,
-                                 1024, 1024)
-    print(f"  causal fwd bf16 S={S}: {dt*1e3:.3f} ms  {flops/dt/1e12:.1f} TFLOP/s")
-
-    def fwdbwd(q, k, v):
-        out, vjp = jax.vjp(fwd, q, k, v)
-        dq, dk, dv = vjp(do)
-        return dq + dk + dv
-
-    dt2 = device_time(fwdbwd, (q, k, v))
-    from tf_flash_attention_tpu.schedule import build_schedule
-    live = int(build_schedule(pack, CausalRule(), 1024, 1024).live.sum())
-    total = 9 * 2 * 1024 * 1024 * D * live * B
-    print(f"  causal fwd+bwd bf16 S={S}: {dt2*1e3:.3f} ms  {total/dt2/1e12:.1f} TFLOP/s")
-
-    # Whole-model training throughput (tokens/s/chip) — the measured tier
-    # of the BASELINE.json tokens/s-scaling north star.  Flagship LM at
-    # engine_bench's ~168M size (8L x 1024d, GQA off, causal flash
-    # attention throughout), full optax-adamw train step.
-    import functools
-    import optax
-    from tf_flash_attention_tpu.models.transformer import (
-        ModelConfig, init_params, train_step)
-
-    BT, ST = 8, 2048
-    cfgm = ModelConfig(vocab=32768, d_model=1024, n_layers=8, n_heads=8,
-                       n_kv_heads=8, d_head=128, d_ff=4096, max_seq=ST)
-    mp = init_params(cfgm, jax.random.PRNGKey(0))
-    n_params = sum(x.size for x in jax.tree_util.tree_leaves(mp))
-    opt = optax.adamw(1e-3)
-    ost = opt.init(mp)
-    toks = jnp.asarray(rng.integers(0, cfgm.vocab, (BT, ST + 1)), jnp.int32)
-    stepf = functools.partial(train_step, cfgm, optimizer=opt)
-    fn = lambda toks: stepf(mp, ost, toks)
-    dt3 = device_time(fn, (toks,), n=5)
-    toks_step = BT * ST
-    # 6ND model FLOPs + attention matmul FLOPs.  MFU's numerator uses the
-    # USEFUL gradient count — fwd 2 GEMMs + bwd canonical 5 = 3.5x the fwd
-    # pair — matching flops.matmul_flops_backward's pricing policy (no
-    # credit for the recompute split's duplicated GEMMs).
-    flops_model = 6.0 * n_params * toks_step
-    att = matmul_flops_forward(CausalRule(), "none_front", (ST,), (ST,),
-                               128, 128, BT * cfgm.n_heads) * cfgm.n_layers
-    mfu = (flops_model + 3.5 * att) / dt3 / 197e12
-    print(f"  train step {n_params/1e6:.0f}M-param LM (B={BT}, S={ST}): "
-          f"{dt3*1e3:.1f} ms = {toks_step/dt3:,.0f} tokens/s/chip "
-          f"({mfu:.0%} MFU vs raw bf16 peak)")
-    print("  decode: run FA_BENCH_MODE=decode python bench.py")
-
-
 def virtual(n_devices=8):
     os.environ.setdefault("XLA_FLAGS",
                           f"--xla_force_host_platform_device_count={n_devices}")
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-    jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
     import __graft_entry__ as g
-    print(f"validated tier on {n_devices} virtual devices")
+    print(f"lowering report on {n_devices} virtual devices")
     g.dryrun_multichip(n_devices)
 
     import numpy as np
@@ -134,7 +49,7 @@ def virtual(n_devices=8):
     print(f"  ring attention (8-way context): out {o.shape} ok")
 
     # context-parallel serving: KV pages round-robin over 4 shards,
-    # per-chip paged decode/prefill partials merged by one psum
+    # per-device paged decode/prefill partials merged by one psum
     from tf_flash_attention_tpu.serving.kv_cache import (
         KVCacheConfig, PageAllocator)
     from tf_flash_attention_tpu.serving.seq_sharded_decode import (
@@ -158,10 +73,5 @@ def virtual(n_devices=8):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("--virtual", action="store_true")
     ap.add_argument("-n", type=int, default=8)
-    args = ap.parse_args()
-    if args.virtual:
-        virtual(args.n)
-    else:
-        measured()
+    virtual(ap.parse_args().n)
